@@ -1,0 +1,541 @@
+"""HMC sampler for compiled factor graphs (PyTorch port of
+``lhvi_tpu/engines/hmc.py``, quadratic slice).
+
+Continuous latents move by Hamiltonian Monte Carlo (leapfrog + Metropolis
+correction) with dual-averaging step-size adaptation and diagonal
+mass-matrix adaptation; chains are a leading tensor axis. On models whose
+continuous energy is entirely the fused quadratic form
+(``CompiledFG.cont_pure_quad``) every transition is one fused proposal,
+routed in the reference's order: banded DIA (kernel K2), then sparse ELL
+(torch ops), then dense (kernel K1).
+
+The reference's ``lax.scan``/``fori_loop`` loops are Python loops here.
+Nothing in a transition reads a device value back: the step size
+``exp(log_eps)`` stays a 0-d device tensor that the kernels read through a
+pointer, and K2's per-proposal momentum stream is keyed on the host by
+the generator's seed and its Philox offset, which each proposal advances.
+
+Not in this slice (each raises ``NotImplementedError`` naming its slice):
+discrete latents (chromatic Gibbs), the non-quadratic proposal, the
+mode-swap move and the fused log-potential kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from lhvi_tpu_torch.fg.compile import CompiledFG
+from lhvi_tpu_torch.ops.dia import _kinetic
+
+_SLICE2 = ("arrives with Slice 2, hybrid HMC-within-Gibbs "
+           "(ROADMAP Queue 1 item 4)")
+
+
+@dataclasses.dataclass(frozen=True)
+class HMCConfig:
+    n_leapfrog: int = 8
+    init_step_size: float = 0.1
+    target_accept: float = 0.8
+    gibbs_sweeps: int = 1
+    gibbs_max_colors: int = 0
+    adapt_mass: bool = True
+    jitter: float = 1.0
+    # fused log-potential kernel for non-quadratic targets (K5)
+    fused_logpot: bool = False
+    gibbs_unroll: int = 1
+    # banded (DIA) fused proposal (K2) on ELL targets whose offsets form a
+    # small static set; False keeps the ELL gather·FMA path
+    dia_kernel: bool = True
+    # orbit-level mode-swap MH move after each Gibbs stage
+    mode_swap: bool = False
+    mode_swap_every: int = 1
+
+
+class HMCState(NamedTuple):
+    xc: torch.Tensor  # [C, n_cont]
+    xd: torch.Tensor  # [C, n_disc]
+    log_eps: torch.Tensor  # dual-averaging state (0-d tensors)
+    log_eps_bar: torch.Tensor
+    h_bar: torch.Tensor
+    t: torch.Tensor
+    welford_mean: torch.Tensor  # [n_cont]
+    welford_m2: torch.Tensor
+    welford_n: torch.Tensor
+    inv_mass: torch.Tensor  # [n_cont] diagonal
+
+
+def _check_supported(fg: CompiledFG, cfg: HMCConfig):
+    if fg.n_disc > 0:
+        raise NotImplementedError(
+            f"discrete latents (n_disc={fg.n_disc}): chromatic Gibbs "
+            + _SLICE2)
+    if not fg.cont_pure_quad:
+        raise NotImplementedError(
+            "the non-quadratic HMC proposal (autograd over "
+            "log_prob_cont_batched) " + _SLICE2)
+    if cfg.mode_swap:
+        raise NotImplementedError(
+            "mode_swap arrives with Slice 7, the pod flagship "
+            "(ROADMAP Queue 1 item 9)")
+    if cfg.fused_logpot:
+        raise NotImplementedError(
+            "fused_logpot (kernel K5) arrives with Slice 8, the fused "
+            "non-quadratic path (ROADMAP Queue 1 item 10)")
+
+
+def sweep_all(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd):
+    """cfg.gibbs_sweeps chromatic sweeps over all chains: the identity on
+    models without discrete latents (the only ones this slice runs)."""
+    if fg.n_disc == 0:
+        return xd
+    raise NotImplementedError("chromatic Gibbs sweeps " + _SLICE2)
+
+
+def _use_dia(fg: CompiledFG, cfg: HMCConfig) -> bool:
+    from lhvi_tpu_torch.ops.dia import DIA_MAX_EMB
+
+    return (fg.quad_sparse and fg.quad_dia_offsets is not None
+            and cfg.dia_kernel and fg.quad_dia_w.shape[1] <= DIA_MAX_EMB)
+
+
+def _quad_proposal(fg: CompiledFG, cfg: HMCConfig, xc, p0, eps, inv_mass):
+    """Dense or ELL trajectory from momenta ``p0`` →
+    ``(x1, log_acc)`` with non-finite log-accepts mapped to −inf."""
+    from lhvi_tpu_torch.ops.leapfrog import ell_quad_leapfrog, quad_leapfrog
+
+    if fg.quad_sparse:
+        x1, p1, g0, g1 = ell_quad_leapfrog(
+            xc, p0, fg.quad_diag, fg.quad_ell_col, fg.quad_ell_w,
+            fg.quad_h, inv_mass, eps, cfg.n_leapfrog,
+        )
+        hq = fg.quad_h[None, :]
+        lp0 = fg.quad_c + 0.5 * torch.sum(xc * (hq + g0), dim=-1)
+        lp1 = fg.quad_c + 0.5 * torch.sum(x1 * (hq + g1), dim=-1)
+    else:
+        x1, p1 = quad_leapfrog(xc, p0, fg.quad_J, fg.quad_h, inv_mass, eps,
+                               cfg.n_leapfrog)
+        lp0 = fg.quad_log_prob_batched(xc)
+        lp1 = fg.quad_log_prob_batched(x1)
+    h0 = -lp0 + _kinetic(inv_mass, p0)
+    h1 = -lp1 + _kinetic(inv_mass, p1)
+    log_acc = torch.clamp(h0 - h1, max=0.0)
+    log_acc = torch.where(torch.isfinite(log_acc), log_acc,
+                          torch.full((), -math.inf, device=xc.device))
+    return x1, log_acc
+
+
+def _mh_accept(xc, x1, log_acc, u):
+    """Metropolis step given uniforms ``u`` [C] → (xc', accept prob)."""
+    accept = torch.log(u) < log_acc
+    return torch.where(accept[:, None], x1, xc), torch.exp(log_acc)
+
+
+def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd, eps,
+                      inv_mass):
+    """One HMC proposal for ALL chains on a purely-quadratic target."""
+    _check_supported(fg, cfg)
+    C = xc.shape[0]
+    if _use_dia(fg, cfg):
+        from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
+
+        x1, log_acc = dia_hmc_proposal(
+            gen, xc, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w,
+            fg.quad_h, inv_mass, eps, cfg.n_leapfrog,
+            pos=fg.quad_dia_pos, inv=fg.quad_dia_inv,
+        )
+    else:
+        std = torch.sqrt(1.0 / torch.clamp(inv_mass, min=1e-12))
+        p0 = std[None, :] * torch.randn(xc.shape, generator=gen,
+                                        device=xc.device)
+        x1, log_acc = _quad_proposal(fg, cfg, xc, p0, eps, inv_mass)
+    u = torch.rand((C,), generator=gen, device=xc.device)
+    return _mh_accept(xc, x1, log_acc, u)
+
+
+def hmc_transition(fg: CompiledFG, cfg: HMCConfig, state: HMCState, gen,
+                   adapt: bool):
+    """One full transition for all chains."""
+    xd = sweep_all(fg, cfg, gen, state.xc, state.xd)
+    eps = torch.exp(state.log_eps)
+    xc, acc = _hmc_step_batched(fg, cfg, gen, state.xc, xd, eps,
+                                state.inv_mass)
+    state = state._replace(xc=xc, xd=xd)
+    if adapt:
+        state = _da_update(state, torch.mean(acc), cfg)
+        state = _welford_update(state, xc)
+    return state, acc
+
+
+def _scalar(v, device) -> torch.Tensor:
+    """A 0-d f32 tensor filled on the device (no host-to-device copy)."""
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
+def init_hmc_state(fg: CompiledFG, gen, cfg: HMCConfig,
+                   n_chains: int) -> HMCState:
+    """Fresh batched sampler state (pre-warmup)."""
+    dev = fg.device
+    xc, xd = fg.init_state_batched(gen, n_chains, cfg.jitter)
+    log_eps0 = _scalar(math.log(cfg.init_step_size), dev)
+    zeros = torch.zeros(fg.n_cont, device=dev)
+    return HMCState(
+        xc=xc, xd=xd,
+        log_eps=log_eps0, log_eps_bar=log_eps0.clone(),
+        h_bar=_scalar(0.0, dev), t=_scalar(0.0, dev),
+        welford_mean=zeros, welford_m2=zeros.clone(),
+        welford_n=_scalar(0.0, dev),
+        inv_mass=torch.ones(fg.n_cont, device=dev),
+    )
+
+
+def _mass_refresh(fg: CompiledFG, cfg, state: HMCState) -> HMCState:
+    if not cfg.adapt_mass or fg.n_cont == 0:
+        return state
+    var = state.welford_m2 / torch.clamp(state.welford_n - 1.0, min=1.0)
+    inv_mass = torch.where(state.welford_n > 10.0,
+                           torch.clamp(var, min=1e-6),
+                           torch.ones_like(var))
+    return state._replace(inv_mass=inv_mass)
+
+
+def run_warmup(fg: CompiledFG, cfg, state: HMCState, n_warmup: int,
+               transition):
+    """Two-phase warmup (dual averaging; mass refresh between phases).
+    ``transition(state, adapt) -> (state, acc)``."""
+    if n_warmup <= 0:
+        return state
+    dev = state.xc.device
+    half = max(n_warmup // 2, 1)
+    for _ in range(half):
+        state, _ = transition(state, True)
+    state = _mass_refresh(fg, cfg, state)
+    state = state._replace(
+        h_bar=_scalar(0.0, dev), t=_scalar(0.0, dev),
+        welford_mean=torch.zeros(fg.n_cont, device=dev),
+        welford_m2=torch.zeros(fg.n_cont, device=dev),
+        welford_n=_scalar(0.0, dev),
+    )
+    for _ in range(n_warmup - half):
+        state, _ = transition(state, True)
+    state = _mass_refresh(fg, cfg, state)
+    return state._replace(log_eps=state.log_eps_bar)
+
+
+def _da_update(state: HMCState, accept_mean, cfg: HMCConfig):
+    """Nesterov dual averaging on log step size (Hoffman–Gelman 2014)."""
+    gamma, t0, kappa = 0.05, 10.0, 0.75
+    mu = math.log(10.0 * cfg.init_step_size)
+    t = state.t + 1.0
+    h_bar = (1.0 - 1.0 / (t + t0)) * state.h_bar + (
+        cfg.target_accept - accept_mean
+    ) / (t + t0)
+    log_eps = mu - torch.sqrt(t) / gamma * h_bar
+    w = t ** (-kappa)
+    log_eps_bar = w * log_eps + (1.0 - w) * state.log_eps_bar
+    return state._replace(
+        log_eps=log_eps, log_eps_bar=log_eps_bar, h_bar=h_bar, t=t
+    )
+
+
+def _welford_update(state: HMCState, xc):
+    """Chan et al. batched Welford: fold all C chain states in at once (the
+    estimand is the cross-chain posterior variance)."""
+    C = xc.shape[0]
+    n_new = state.welford_n + C
+    batch_mean = torch.mean(xc, dim=0)
+    batch_m2 = torch.sum((xc - batch_mean) ** 2, dim=0)
+    delta = batch_mean - state.welford_mean
+    mean = state.welford_mean + delta * (C / n_new)
+    m2 = state.welford_m2 + batch_m2 + delta**2 * (state.welford_n * C / n_new)
+    return state._replace(welford_mean=mean, welford_m2=m2, welford_n=n_new)
+
+
+# ---- streamed convergence diagnostics (collect="moments") ---------------
+
+
+class _StreamDiag(NamedTuple):
+    """Per-chain streaming accumulators, all [C, n_cont]: two split-half
+    Welford pairs (split-R̂), a lag-1 cross-product (AR(1) ESS proxy) and a
+    batch-means block (current-batch sum + Welford over completed batch
+    means) for the batch-means ESS."""
+
+    h1_mean: torch.Tensor
+    h1_m2: torch.Tensor
+    h2_mean: torch.Tensor
+    h2_m2: torch.Tensor
+    cross: torch.Tensor
+    prev: torch.Tensor
+    bm_cur: torch.Tensor
+    bm_mean: torch.Tensor
+    bm_m2: torch.Tensor
+
+
+def _stream_diag_init(C: int, n: int, device) -> _StreamDiag:
+    return _StreamDiag(*(torch.zeros((C, n), device=device)
+                         for _ in range(9)))
+
+
+def _split_welford_update(h1_mean, h1_m2, h2_mean, h2_m2, t: int, x,
+                          half: int):
+    """Fold draw ``t`` (0-based) into the split-half Welford pairs; the
+    odd-S tail draw belongs to neither half."""
+
+    def welford(mean, m2, cnt_new):
+        delta = x - mean
+        mean2 = mean + delta / max(cnt_new, 1.0)
+        return mean2, m2 + delta * (x - mean2)
+
+    if t < half:
+        h1_mean, h1_m2 = welford(h1_mean, h1_m2, t + 1.0)
+    elif t < 2 * half:
+        h2_mean, h2_m2 = welford(h2_mean, h2_m2, t + 1.0 - half)
+    return h1_mean, h1_m2, h2_mean, h2_m2
+
+
+def _stream_diag_update(sd: _StreamDiag, t: int, xc, half: int,
+                        bm_len: int = 0, n_batches: int = 0) -> _StreamDiag:
+    """Fold draw ``t`` (0-based) of every chain into the accumulators;
+    every ``bm_len`` draws the batch mean is folded into its Welford pair."""
+    h1_mean, h1_m2, h2_mean, h2_m2 = _split_welford_update(
+        sd.h1_mean, sd.h1_m2, sd.h2_mean, sd.h2_m2, t, xc, half
+    )
+    cross = sd.cross + xc * sd.prev if t > 0 else sd.cross
+    bm_cur, bm_mean, bm_m2 = sd.bm_cur, sd.bm_mean, sd.bm_m2
+    if bm_len > 0 and n_batches >= 2:
+        bm_cur = bm_cur + xc
+        t1 = t + 1
+        batch_no = t1 // bm_len  # 1-based count AT a boundary
+        if t1 % bm_len == 0 and batch_no <= n_batches:
+            bmean = bm_cur / bm_len
+            delta = bmean - bm_mean
+            bm_mean = bm_mean + delta / max(float(batch_no), 1.0)
+            bm_m2 = bm_m2 + delta * (bmean - bm_mean)
+            bm_cur = torch.zeros_like(bm_cur)
+    return _StreamDiag(h1_mean, h1_m2, h2_mean, h2_m2, cross, xc,
+                       bm_cur, bm_mean, bm_m2)
+
+
+def _stream_diag_finalize(sd: _StreamDiag, n_samples: int,
+                          bm_len: int = 0) -> dict:
+    """{'rhat', 'ess_proxy', 'ess_bm'} ([n] each) from the accumulators.
+
+    ``rhat`` is exact split-R̂ (the per-half Welford pairs are the split
+    chains' means/variances); ``ess_proxy`` the AR(1) approximation
+    S·C·(1−ρ̂₁)/(1+ρ̂₁); ``ess_bm`` the batch-means estimator
+    Σ_c min(S/τ̂_c, S) with τ̂ = b·s²_bm/s² (NaN without two batches)."""
+    C, n = sd.h1_mean.shape
+    dev = sd.h1_mean.device
+    half = n_samples // 2
+    if half < 2:
+        nanv = torch.full((n,), math.nan, device=dev)
+        return {"rhat": nanv, "ess_proxy": nanv, "ess_bm": nanv}
+    chain_mean = torch.cat([sd.h1_mean, sd.h2_mean], dim=0)
+    chain_var = torch.cat([sd.h1_m2, sd.h2_m2], dim=0) / (half - 1)
+    B = half * torch.var(chain_mean, dim=0, correction=1)
+    W = torch.mean(chain_var, dim=0)
+    var_hat = (half - 1) / half * W + B / half
+    rhat = torch.sqrt(var_hat / torch.clamp(W, min=1e-12))
+    S = n_samples
+    # Chan merge of the equal-count halves → per-chain full-window moments
+    f_mean = 0.5 * (sd.h1_mean + sd.h2_mean)
+    f_m2 = sd.h1_m2 + sd.h2_m2 + 0.5 * half * (sd.h1_mean - sd.h2_mean) ** 2
+    var_c = f_m2 / max(2 * half - 1, 1)
+    rho1 = (sd.cross / max(S - 1, 1) - f_mean * f_mean) / torch.clamp(
+        var_c, min=1e-12)
+    rho1 = torch.clamp(torch.mean(rho1, dim=0), 0.0, 0.999)
+    ess = S * C * (1.0 - rho1) / (1.0 + rho1)
+    n_batches = S // bm_len if bm_len else 0
+    if n_batches >= 2:
+        s2_bm = sd.bm_m2 / (n_batches - 1)
+        tau = bm_len * s2_bm / torch.clamp(var_c, min=1e-12)
+        ess_c = torch.clamp(S / torch.clamp(tau, min=1e-12), max=float(S))
+        # a frozen dimension has no defined autocorrelation: report S
+        ess_c = torch.where(var_c <= 0.0, torch.full_like(ess_c, float(S)),
+                            ess_c)
+        ess_bm = torch.sum(ess_c, dim=0)
+    else:
+        ess_bm = torch.full((n,), math.nan, device=dev)
+    return {"rhat": rhat, "ess_proxy": ess, "ess_bm": ess_bm}
+
+
+def _bm_schedule(n_samples: int) -> tuple:
+    """(batch length, batch count) for the batch-means stream: b = ⌊√S⌋;
+    (0, 0) when fewer than two complete batches fit."""
+    b = max(1, int(n_samples ** 0.5))
+    nb = n_samples // b
+    return (b, nb) if nb >= 2 else (0, 0)
+
+
+def run_hmc(
+    fg: CompiledFG,
+    gen: torch.Generator,
+    cfg: HMCConfig = HMCConfig(),
+    n_chains: int = 8,
+    n_warmup: int = 500,
+    n_samples: int = 1000,
+    thin: int = 1,
+    collect: str = "samples",
+    stream_diag: bool = True,
+):
+    """Run the sampler.
+
+    ``gen`` is a ``torch.Generator`` on ``fg.device``; it drives every draw
+    (initial state, momenta, accept uniforms); on the banded CUDA path
+    its seed and Philox offset key K2's in-kernel momenta.
+
+    collect="samples": returns (samples_xc [S,C,n_cont], samples_xd
+    [S,C,n_disc], diag). collect="moments": streams sufficient statistics
+    on the device instead of materializing the sample array; returns
+    (moments dict, None, diag). ``stream_diag`` (moments mode) carries the
+    streamed split-R̂/ESS accumulators; False for pure-throughput runs.
+    """
+    if collect not in ("samples", "moments"):
+        raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
+    _check_supported(fg, cfg)
+    dev = fg.device
+    state = init_hmc_state(fg, gen, cfg, n_chains)
+
+    def trans(s, adapt):
+        return hmc_transition(fg, cfg, s, gen, adapt)
+
+    state = run_warmup(fg, cfg, state, n_warmup, trans)
+
+    def sample_step(state):
+        acc_sum = 0.0
+        for _ in range(thin):
+            state, acc = trans(state, False)
+            acc_sum = acc_sum + torch.mean(acc)
+        return state, acc_sum / thin
+
+    acc_total = torch.zeros((), device=dev)
+    if collect == "moments":
+        half = n_samples // 2
+        bm_len, n_batches = _bm_schedule(n_samples)
+        s1 = torch.zeros(fg.n_cont, device=dev)
+        s2 = torch.zeros(fg.n_cont, device=dev)
+        sd = _stream_diag_init(n_chains, fg.n_cont, dev) if stream_diag else None
+        for t in range(n_samples):
+            state, acc = sample_step(state)
+            acc_total = acc_total + acc
+            xc = state.xc
+            s1 = s1 + torch.sum(xc, dim=0)
+            s2 = s2 + torch.sum(xc * xc, dim=0)
+            if stream_diag:
+                sd = _stream_diag_update(sd, t, xc, half, bm_len, n_batches)
+        n_obs = n_samples * n_chains
+        mean = s1 / n_obs
+        var = torch.clamp(s2 / n_obs - mean**2, min=0.0)
+        moments = {
+            "mean": mean,
+            "var": var,
+            "disc_probs": torch.zeros((max(fg.n_disc, 1), fg.max_v),
+                                      device=dev),
+            "n_obs": n_obs,
+        }
+        diag = {
+            "accept_rate": acc_total / max(n_samples, 1),
+            "step_size": torch.exp(state.log_eps),
+            "inv_mass": state.inv_mass,
+            **(_stream_diag_finalize(sd, n_samples, bm_len)
+               if stream_diag else {}),
+        }
+        return moments, None, diag
+
+    s_xc, s_xd = [], []
+    for _ in range(n_samples):
+        state, acc = sample_step(state)
+        acc_total = acc_total + acc
+        s_xc.append(state.xc)
+        s_xd.append(state.xd)
+    diag = {
+        "accept_rate": acc_total / max(n_samples, 1),
+        "step_size": torch.exp(state.log_eps),
+        "inv_mass": state.inv_mass,
+    }
+    if not s_xc:
+        return (torch.zeros((0, n_chains, fg.n_cont), device=dev),
+                torch.zeros((0, n_chains, fg.n_disc), dtype=torch.int64,
+                            device=dev), diag)
+    return torch.stack(s_xc), torch.stack(s_xd), diag
+
+
+def _to_numpy(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+class _Queries:
+    """Shared RV-level query plumbing (reference ``belief/map`` parity)."""
+
+    def _loc(self, rv, want):
+        kind, i = self.fg.meta.loc(rv)
+        if kind == "obs":
+            raise ValueError(f"{rv} is observed (evidence); it has no posterior")
+        if kind != want:
+            raise ValueError(
+                f"{rv} is {'continuous' if kind == 'c' else 'discrete'}")
+        return i
+
+    def map(self, rv):
+        kind, _ = self.fg.meta.loc(rv)
+        if kind == "c":
+            return self.mean(rv)
+        p = self.disc_marginal(rv)
+        return self.fg.meta.disc_values(rv)[int(p.argmax())]
+
+
+class HMCResult(_Queries):
+    """Query wrapper over materialized samples (collect="samples")."""
+
+    def __init__(self, fg: CompiledFG, s_xc, s_xd, diag):
+        self.fg = fg
+        s_xc, s_xd = _to_numpy(s_xc), _to_numpy(s_xd)
+        n_draws = s_xc.shape[0] * s_xc.shape[1]
+        self.xc = s_xc.reshape(n_draws, fg.n_cont)  # [S*C, n]
+        self.xd = s_xd.reshape(n_draws, fg.n_disc)
+        self.diag = {k: _to_numpy(v) for k, v in diag.items()}
+
+    def mean(self, rv) -> float:
+        return float(self.xc[:, self._loc(rv, "c")].mean())
+
+    def var(self, rv) -> float:
+        return float(self.xc[:, self._loc(rv, "c")].var())
+
+    def disc_marginal(self, rv):
+        i = self._loc(rv, "d")
+        size = self.fg.meta.disc_size(rv)
+        counts = np.bincount(self.xd[:, i], minlength=size)[:size]
+        return counts / counts.sum()
+
+
+class HMCMoments(_Queries):
+    """Query wrapper over streamed sufficient statistics (collect="moments")."""
+
+    def __init__(self, fg: CompiledFG, moments, diag):
+        self.fg = fg
+        self.moments = {k: _to_numpy(v) for k, v in moments.items()}
+        self.diag = {k: _to_numpy(v) for k, v in diag.items()}
+
+    def mean(self, rv) -> float:
+        return float(self.moments["mean"][self._loc(rv, "c")])
+
+    def var(self, rv) -> float:
+        return float(self.moments["var"][self._loc(rv, "c")])
+
+    def disc_marginal(self, rv):
+        i = self._loc(rv, "d")
+        return self.moments["disc_probs"][i, : self.fg.meta.disc_size(rv)]
+
+
+def sample(fg: CompiledFG, gen, **kw):
+    """Convenience wrapper: run and wrap results for RV-level queries."""
+    cfg = kw.pop("cfg", HMCConfig())
+    if kw.get("collect") == "moments":
+        moments, _, diag = run_hmc(fg, gen, cfg, **kw)
+        return HMCMoments(fg, moments, diag)
+    s_xc, s_xd, diag = run_hmc(fg, gen, cfg, **kw)
+    return HMCResult(fg, s_xc, s_xd, diag)

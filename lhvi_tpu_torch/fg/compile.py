@@ -1,0 +1,580 @@
+"""Graph-to-tensor factor compiler (PyTorch port of ``lhvi_tpu/fg/compile.py``).
+
+The graph is compiled ONCE on the host into a statically-shaped, bucketed
+tensor IR — ``CompiledFG`` — placed on the ``device`` the caller names;
+every engine consumes only that IR:
+
+- factors are grouped into **buckets** by (potential bucket key, continuity
+  pattern, evidence pattern, tied); one batched kernel evaluates a bucket;
+- evidence is baked in as per-slot constants + masks;
+- bucket sizes are padded to a multiple of ``pad_to`` with zero-weight rows;
+- per-factor ``scale`` carries lifted orbit counts (1.0 when grounded,
+  0.0 for padding);
+- Gaussian-quadratic buckets are folded into one information form
+  ``(J, h, c)``: dense up to ``quad_max_n`` latents, ELL past it, refined
+  to banded DIA when the offsets form a small set (``ops/dia.py``).
+
+All host-side table construction is the reference's numpy code, so the
+host mirrors (``FGMeta.np_buckets``/``np_global``) and the information-form
+tables equal the reference's exactly. The discrete-Gibbs plan
+(``disc_logits``, the conflict coloring and the color plan) arrives with
+the hybrid HMC-within-Gibbs slice; until then ``gibbs`` and
+``color_plan`` are ``None``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from lhvi_tpu_torch.fg.graph import Domain, F, Graph, RV
+from lhvi_tpu_torch.potentials.library import select_last
+
+
+class FGMeta:
+    """Host-side metadata: RV ↔ flat-index maps, plus host numpy mirrors
+    (``np_buckets``/``np_global``) of the compiled index tables, so setup
+    code never has to read tables back from the device."""
+
+    def __init__(self):
+        self.cont_rvs: List[RV] = []
+        self.disc_rvs: List[RV] = []
+        self.index: Dict[int, Tuple[str, int]] = {}  # id(rv) -> (kind, idx)
+        self.graph: Graph = None
+        self.cont_counts: np.ndarray = None  # lifted orbit sizes (None=grounded)
+        self.disc_counts: np.ndarray = None
+        self.np_buckets: List[Dict[str, np.ndarray]] = []
+        self.np_global: Dict[str, np.ndarray] = {}
+
+    def loc(self, rv: RV) -> Tuple[str, int]:
+        """('c'|'d'|'obs', flat index) of an RV in the compiled state."""
+        return self.index[id(rv)]
+
+    def disc_size(self, rv) -> int:
+        return rv.domain.size
+
+    def disc_values(self, rv):
+        return rv.domain.values
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FactorBucket:
+    """One potential-type bucket: ``n_f`` same-kernel factors, batched.
+
+    Index tensors are int64 (torch's indexing type); the host mirrors in
+    ``FGMeta.np_buckets`` keep the reference's int32."""
+
+    kind: str
+    pattern: Tuple[bool, ...]
+    kernel: Callable
+    params: Dict[str, torch.Tensor]  # leaves [n_f, ...]
+    cont_idx: torch.Tensor  # i64 [n_f, ac] into x_c (0 where not latent)
+    cont_mask: torch.Tensor  # f32 [n_f, ac] 1=latent
+    cont_const: torch.Tensor  # f32 [n_f, ac] evidence values
+    disc_idx: torch.Tensor  # i64 [n_f, ad] into x_d
+    disc_mask: torch.Tensor  # f32 [n_f, ad]
+    disc_first: torch.Tensor  # f32 [n_f, ad] 1 = first latent occurrence
+    disc_const: torch.Tensor  # i64 [n_f, ad] evidence value-indices
+    disc_vals: torch.Tensor  # f32 [n_f, ad, Vmax] slot index->value tables
+    disc_size: torch.Tensor  # i64 [n_f, ad] slot domain sizes
+    scale: torch.Tensor  # f32 [n_f] orbit count (0 = padding)
+
+    @property
+    def ac(self) -> int:
+        return self.cont_idx.shape[1]
+
+    @property
+    def ad(self) -> int:
+        return self.disc_idx.shape[1]
+
+    def gather_args_batched(self, xc: torch.Tensor, xd: torch.Tensor):
+        """State ``[C, n_cont]/[C, n_disc]`` →
+        ``(params [1, n_f, …], xcs [C, n_f, ac], xdi, xdv [C, n_f, ad])``."""
+        C = xc.shape[0]
+        if xc.shape[1]:
+            xcs = torch.where(self.cont_mask[None] > 0, xc[:, self.cont_idx],
+                              self.cont_const[None])
+        else:
+            xcs = self.cont_const[None].expand((C,) + self.cont_const.shape)
+        if xd.shape[1]:
+            xdi = torch.where(self.disc_mask[None] > 0, xd[:, self.disc_idx],
+                              self.disc_const[None])
+        else:
+            xdi = self.disc_const[None].expand((C,) + self.disc_const.shape)
+        if self.ad:
+            xdv = select_last(self.disc_vals[None], xdi)
+        else:
+            xdv = xdi.to(torch.float32)
+        params = {k: v[None] for k, v in self.params.items()}
+        return params, xcs, xdi, xdv
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CompiledFG:
+    """Compiled factor graph: the tensor IR the engines consume.
+
+    Buckets whose log-potentials are quadratic in all-continuous arguments
+    are folded into the information form ``(quad_J, quad_h, quad_c)``;
+    ``log_prob`` evaluates the form and skips those buckets
+    (``lp_bucket_idx`` lists the survivors). ``buckets`` always holds
+    EVERY factor.
+
+    Sparse (ELL) form, set when ``n_cont > quad_max_n``:
+    ``J @ x = diag·x + Σ_k w[:,k]·x[col[:,k]]``; ``quad_J`` stays ``[0, 0]``.
+    Banded (DIA) refinement: ``quad_dia_offsets`` is a static tuple,
+    ``quad_dia_w`` f32 ``[K, n_emb]`` in declaration-order embedded
+    coordinates, ``quad_dia_pos`` (i64 ``[n_cont]``, or None for the
+    identity) embeds the latent state and ``quad_dia_inv`` (i64
+    ``[n_emb]``, sentinel ``n_cont`` at gap lanes) is its inverse.
+    """
+
+    buckets: Tuple[FactorBucket, ...]
+    n_cont: int
+    n_disc: int
+    max_v: int
+    has_quad: bool
+    lp_bucket_idx: Tuple[int, ...]
+    meta: Any  # FGMeta (None when built from tables, utils/convert.py)
+    device: torch.device
+    disc_sizes: torch.Tensor  # i64 [n_disc]
+    disc_vals: torch.Tensor  # f32 [n_disc, Vmax]
+    cont_lo: torch.Tensor  # f32 [n_cont]
+    cont_hi: torch.Tensor
+    cont_ipoints: torch.Tensor  # f32 [n_cont, P]
+    cont_counts: torch.Tensor  # f32 [n_cont]
+    disc_counts: torch.Tensor  # f32 [n_disc]
+    quad_J: torch.Tensor  # f32 [n_cont, n_cont] (or [0, 0])
+    quad_h: torch.Tensor  # f32 [n_cont]
+    quad_c: torch.Tensor  # f32 scalar
+    gibbs: Any = None
+    color_plan: Any = None
+    quad_diag: Any = None  # f32 [n_cont]
+    quad_ell_col: Any = None  # i64 [n_cont, D]
+    quad_ell_w: Any = None  # f32 [n_cont, D]
+    quad_sparse: bool = False
+    quad_dia_offsets: Any = None
+    quad_dia_w: Any = None
+    quad_dia_pos: Any = None
+    quad_dia_inv: Any = None
+
+    @property
+    def cont_pure_quad(self) -> bool:
+        """True if the continuous energy is ENTIRELY the fused quadratic
+        form (every surviving bucket ignores xc) — the fused-leapfrog
+        fast path."""
+        return self.has_quad and all(
+            self.buckets[i].ac == 0 for i in self.lp_bucket_idx
+        )
+
+    def quad_matvec_batched(self, xc: torch.Tensor) -> torch.Tensor:
+        """``J @ x`` rows for a batch in the ELL form: [C, n] → [C, n]."""
+        from lhvi_tpu_torch.ops.leapfrog import ell_matvec
+
+        return ell_matvec(xc, self.quad_diag, self.quad_ell_col,
+                          self.quad_ell_w)
+
+    def quad_log_prob_batched(self, xc: torch.Tensor) -> torch.Tensor:
+        """Batched continuous energy of the fused form: [C, n] → [C]."""
+        if self.quad_sparse:
+            Jx = self.quad_matvec_batched(xc)
+            return self.quad_c + xc @ self.quad_h - 0.5 * torch.sum(
+                xc * Jx, dim=-1)
+        return (self.quad_c + xc @ self.quad_h
+                - 0.5 * torch.sum((xc @ self.quad_J) * xc, dim=-1))
+
+    def log_prob(self, xc: torch.Tensor, xd: torch.Tensor) -> torch.Tensor:
+        """Unnormalized log p(x) = Σ_f scale_f · log φ_f of one state."""
+        return self.log_prob_batched(xc[None], xd[None])[0]
+
+    @property
+    def cont_bucket_idx(self) -> Tuple[int, ...]:
+        """Surviving buckets whose kernels actually read ``xc``."""
+        return tuple(i for i in self.lp_bucket_idx if self.buckets[i].ac > 0)
+
+    def _bucket_logp_batched(self, i: int, xc, xd) -> torch.Tensor:
+        b = self.buckets[i]
+        params, xcs, xdi, xdv = b.gather_args_batched(xc, xd)
+        lp = b.kernel(params, xcs, xdi, xdv)  # [C, n_f]
+        return torch.sum(b.scale[None] * lp, dim=-1)
+
+    def log_prob_batched(self, xc: torch.Tensor,
+                         xd: torch.Tensor) -> torch.Tensor:
+        """``[C]`` log p for a batch of states: the fused form plus one
+        gather/kernel pass per surviving bucket."""
+        total = torch.zeros((xc.shape[0],), dtype=torch.float32,
+                            device=xc.device)
+        if self.has_quad:
+            total = total + self.quad_log_prob_batched(xc)
+        for i in self.lp_bucket_idx:
+            total = total + self._bucket_logp_batched(i, xc, xd)
+        return total
+
+    def log_prob_cont_batched(self, xc: torch.Tensor,
+                              xd: torch.Tensor) -> torch.Tensor:
+        """``[C]`` continuous-state-dependent part of ``log_prob``: the fused
+        form plus only the buckets that read ``xc`` (differs from
+        :meth:`log_prob_batched` by a term constant in ``xc``)."""
+        total = torch.zeros((xc.shape[0],), dtype=torch.float32,
+                            device=xc.device)
+        if self.has_quad:
+            total = total + self.quad_log_prob_batched(xc)
+        for i in self.cont_bucket_idx:
+            total = total + self._bucket_logp_batched(i, xc, xd)
+        return total
+
+    def init_state_batched(self, gen: torch.Generator, n: int,
+                           jitter: float = 0.1):
+        """[n, …] initial states: continuous at domain midpoint + jitter,
+        discrete uniform-random valid indices (two bulk draws from
+        ``gen``, which must live on ``self.device``)."""
+        mid = 0.5 * (self.cont_lo + self.cont_hi)
+        span = torch.clamp(self.cont_hi - self.cont_lo, max=4.0)
+        z = torch.randn((n, self.n_cont), generator=gen, device=self.device)
+        xc = mid[None] + jitter * span[None] * z
+        u = torch.rand((n, self.n_disc), generator=gen, device=self.device)
+        xd = torch.floor(u * self.disc_sizes[None]).to(torch.int64)
+        return xc, xd
+
+
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    """Pad axis 0 to n rows by repeating row 0 (keeps kernels finite)."""
+    if a.shape[0] == n:
+        return a
+    reps = np.repeat(a[:1], n - a.shape[0], axis=0)
+    return np.concatenate([a, reps], axis=0)
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    """Host numpy → device tensor (a copy); integer tables become int64."""
+    a = np.asarray(a)
+    if dtype is None and np.issubdtype(a.dtype, np.integer):
+        dtype = torch.int64
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def compile_graph(
+    g: Graph,
+    device,
+    pad_to: int = 8,
+    scales: Dict[int, float] = None,
+    var_overrides: Dict[int, Tuple[str, int]] = None,
+    n_cont_override: int = None,
+    n_disc_override: int = None,
+    cont_counts: np.ndarray = None,
+    disc_counts: np.ndarray = None,
+    fuse_quadratic: bool = True,
+    quad_max_n: int = 4096,
+    ell_max_deg: int = 128,
+) -> CompiledFG:
+    """Compile a host ``Graph`` into the tensor IR on ``device``.
+
+    ``scales``/``var_overrides``/``n_*_override`` are the lifting hooks: one
+    representative factor per orbit with ``scale = |orbit|`` and orbit-tied
+    variable slots.
+    """
+    device = torch.device(device)
+    g.init_nb()
+    meta = FGMeta()
+    meta.graph = g
+
+    # --- assign state indices -------------------------------------------
+    for rv in g.rvs:
+        if var_overrides is not None and id(rv) in var_overrides:
+            meta.index[id(rv)] = var_overrides[id(rv)]
+            continue
+        if rv.observed:
+            meta.index[id(rv)] = ("obs", -1)
+        elif rv.domain.continuous:
+            meta.index[id(rv)] = ("c", len(meta.cont_rvs))
+            meta.cont_rvs.append(rv)
+        else:
+            meta.index[id(rv)] = ("d", len(meta.disc_rvs))
+            meta.disc_rvs.append(rv)
+
+    n_cont = n_cont_override if n_cont_override is not None else len(meta.cont_rvs)
+    n_disc = n_disc_override if n_disc_override is not None else len(meta.disc_rvs)
+
+    # --- per-variable tables (first writer of each slot wins) -----------
+    disc_dom: List[Domain] = [None] * n_disc
+    cont_dom: List[Domain] = [None] * n_cont
+    for rv in g.rvs:
+        kind, i = meta.index[id(rv)]
+        if kind == "d" and disc_dom[i] is None:
+            disc_dom[i] = rv.domain
+        elif kind == "c" and cont_dom[i] is None:
+            cont_dom[i] = rv.domain
+
+    max_v = max([d.size for d in disc_dom if d is not None] + [1])
+    disc_sizes = np.array(
+        [d.size if d is not None else 1 for d in disc_dom], np.int32
+    ).reshape(n_disc)
+    disc_vals = np.zeros((n_disc, max_v), np.float32)
+    for i, d in enumerate(disc_dom):
+        if d is not None:
+            disc_vals[i, : d.size] = d.values
+
+    n_ip = max([len(d.integral_points) for d in cont_dom if d is not None] + [1])
+    cont_lo = np.zeros(n_cont, np.float32)
+    cont_hi = np.zeros(n_cont, np.float32)
+    cont_ip = np.zeros((n_cont, n_ip), np.float32)
+    for i, d in enumerate(cont_dom):
+        if d is None:
+            continue
+        cont_lo[i], cont_hi[i] = d.low, d.high
+        ip = np.asarray(d.integral_points, np.float32)
+        cont_ip[i, : len(ip)] = ip
+        if len(ip) < n_ip:  # pad with last site (harmless duplicates)
+            cont_ip[i, len(ip):] = ip[-1] if len(ip) else 0.0
+
+    # --- bucket the factors ---------------------------------------------
+    buckets_raw: Dict[Any, List[F]] = {}
+    for f in g.factors:
+        for rv in f.nb:
+            if id(rv) not in meta.index:
+                raise ValueError(
+                    f"factor {f} references {rv} which is not in Graph.rvs"
+                )
+        pattern = tuple(rv.domain.continuous for rv in f.nb)
+        latency = tuple(meta.index[id(rv)][0] != "obs" for rv in f.nb)
+        # tied = some latent continuous state index appears in >1 slot;
+        # quadratic fusion would fold the cross coupling onto the
+        # diagonal, so tied factors stay on the unfused bucket path
+        c_slots = [
+            meta.index[id(rv)][1]
+            for rv in f.nb
+            if rv.domain.continuous and meta.index[id(rv)][0] == "c"
+        ]
+        cont_tied = len(c_slots) != len(set(c_slots))
+        key = (f.potential.bucket_key(), pattern, latency, cont_tied)
+        buckets_raw.setdefault(key, []).append(f)
+
+    # --- quadratic fusion decision per bucket ---------------------------
+    from lhvi_tpu_torch.fg.quad import (
+        QUADRATIC_TYPES,
+        accumulate_information_ell,
+        accumulate_information_form,
+    )
+
+    do_fuse = fuse_quadratic and n_cont > 0
+    fused_flags: List[bool] = []
+    fused_factors: List[F] = []
+
+    buckets: List[FactorBucket] = []
+    for (bkey, pattern, latency, cont_tied), fs in buckets_raw.items():
+        fusible = (
+            do_fuse
+            and isinstance(fs[0].potential, QUADRATIC_TYPES)
+            and all(pattern)
+            and not cont_tied
+        )
+        fused_flags.append(fusible)
+        if fusible:
+            fused_factors.extend(fs)
+        ac = sum(pattern)
+        ad = len(pattern) - ac
+        n_raw = len(fs)
+        n = _round_up(max(n_raw, 1), pad_to)
+
+        p_stack: Dict[str, List[np.ndarray]] = {}
+        c_idx = np.zeros((n_raw, ac), np.int32)
+        c_mask = np.zeros((n_raw, ac), np.float32)
+        c_const = np.zeros((n_raw, ac), np.float32)
+        d_idx = np.zeros((n_raw, ad), np.int32)
+        d_mask = np.zeros((n_raw, ad), np.float32)
+        d_first = np.zeros((n_raw, ad), np.float32)
+        d_const = np.zeros((n_raw, ad), np.int32)
+        # value tables sized to THIS bucket's slot domains (an observed
+        # discrete slot may have a larger domain than any latent)
+        b_vmax = max(
+            [rv.domain.size for f in fs for rv in f.nb
+             if not rv.domain.continuous] + [1]
+        )
+        d_vals = np.zeros((n_raw, ad, b_vmax), np.float32)
+        d_size = np.ones((n_raw, ad), np.int32)
+        scale = np.ones(n_raw, np.float32)
+
+        for r, f in enumerate(fs):
+            if scales is not None:
+                scale[r] = scales.get(id(f), 1.0)
+            for k, v in f.potential.param_arrays().items():
+                p_stack.setdefault(k, []).append(np.asarray(v, dtype=None))
+            ci = di = 0
+            seen_d: set = set()
+            for rv, is_cont in zip(f.nb, pattern):
+                kind, idx = meta.index[id(rv)]
+                if is_cont:
+                    if kind == "c":
+                        c_idx[r, ci], c_mask[r, ci] = idx, 1.0
+                    else:  # observed
+                        c_const[r, ci] = float(rv.value)
+                    ci += 1
+                else:
+                    dom = rv.domain
+                    d_vals[r, di, : dom.size] = dom.values
+                    if dom.size < b_vmax:
+                        d_vals[r, di, dom.size:] = dom.values[-1]
+                    d_size[r, di] = dom.size
+                    if kind == "d":
+                        d_idx[r, di], d_mask[r, di] = idx, 1.0
+                        if idx not in seen_d:
+                            d_first[r, di] = 1.0
+                            seen_d.add(idx)
+                    else:
+                        d_const[r, di] = dom.value_index(rv.value)
+                    di += 1
+
+        params = {}
+        for k, v in p_stack.items():
+            stacked = np.stack(v)
+            if np.issubdtype(stacked.dtype, np.floating):
+                stacked = stacked.astype(np.float32)
+            params[k] = _pad_rows(stacked, n)
+        pad = lambda a: _pad_rows(a, n)  # noqa: E731
+        scale_p = np.concatenate([scale, np.zeros(n - n_raw, np.float32)])
+        np_b = {
+            "cont_idx": pad(c_idx),
+            "cont_mask": (pad(c_mask) * (scale_p > 0)[:, None]
+                          if ac else pad(c_mask)),
+            "cont_const": pad(c_const),
+            "disc_idx": pad(d_idx),
+            "disc_mask": (pad(d_mask) * (scale_p > 0)[:, None]
+                          if ad else pad(d_mask)),
+            "disc_first": (pad(d_first) * (scale_p > 0)[:, None]
+                           if ad else pad(d_first)),
+            "disc_const": pad(d_const),
+            "disc_vals": pad(d_vals),
+            "disc_size": pad(d_size),
+            "scale": scale_p,
+            "params": params,
+        }
+        meta.np_buckets.append(np_b)
+        buckets.append(
+            FactorBucket(
+                kind=str(bkey),
+                pattern=pattern,
+                kernel=fs[0].potential.kernel(pattern),
+                params={k: _tensor(v, device) for k, v in params.items()},
+                **{k: _tensor(np_b[k], device) for k in (
+                    "cont_idx", "cont_mask", "cont_const", "disc_idx",
+                    "disc_mask", "disc_first", "disc_const", "disc_vals",
+                    "disc_size", "scale")},
+            )
+        )
+
+    if cont_counts is None:
+        cont_counts = np.ones(n_cont, np.float32)
+    if disc_counts is None:
+        disc_counts = np.ones(n_disc, np.float32)
+    meta.cont_counts, meta.disc_counts = cont_counts, disc_counts
+
+    # --- fold fused buckets into the information form -------------------
+    has_quad = bool(fused_factors)
+    quad_sparse = False
+    quad_diag = quad_ell_col = quad_ell_w = None
+    quad_dia_offsets = quad_dia_w = quad_dia_pos = quad_dia_inv = None
+    J = None
+    if has_quad and n_cont > quad_max_n:
+        ell = accumulate_information_ell(
+            fused_factors, meta, n_cont, scales=scales, max_deg=ell_max_deg
+        )
+        if ell is None:
+            # densely coupled rows: ELL would be O(n²) — un-fuse and let
+            # the bucket path evaluate these factors
+            has_quad = False
+            fused_flags = [False] * len(fused_flags)
+            fused_factors = []
+        else:
+            diag_np, col_np, w_np, h, c = ell
+            quad_sparse = True
+            quad_diag = _tensor(diag_np, device)
+            quad_ell_col = _tensor(col_np, device)
+            quad_ell_w = _tensor(w_np, device)
+            quad_J = torch.zeros((0, 0), device=device)
+            quad_h = _tensor(h, device, torch.float32)
+            quad_c = _tensor(c, device, torch.float32)
+            # banded refinement, detected in DECLARATION-ORDER coordinates
+            # (each latent's position among all continuous RVs as
+            # declared): a row-major grid keeps its {±1, ±W} template
+            # there, and evidence positions become inert zero lanes
+            if var_overrides is None:
+                from lhvi_tpu_torch.ops.dia import ell_to_dia, pos_to_inv
+
+                full_pos = np.empty(n_cont, np.int64)
+                kfull = 0
+                for rv in g.rvs:
+                    if rv.domain.continuous:
+                        kind, ii = meta.index[id(rv)]
+                        if kind == "c":
+                            full_pos[ii] = kfull
+                        kfull += 1
+                dia = ell_to_dia(col_np, w_np, pos=full_pos)
+                if dia is not None:
+                    quad_dia_offsets = dia[0]
+                    quad_dia_w = _tensor(dia[1], device)
+                    if dia[2] is not None:
+                        quad_dia_pos = _tensor(dia[2], device, torch.int64)
+                        quad_dia_inv = _tensor(pos_to_inv(dia[2], n_cont),
+                                               device)
+    if has_quad and not quad_sparse:
+        J, h, c = accumulate_information_form(
+            fused_factors, meta, n_cont, scales=scales
+        )
+        quad_J = _tensor(J, device, torch.float32)
+        quad_h = _tensor(h, device, torch.float32)
+        quad_c = _tensor(c, device, torch.float32)
+    if not has_quad:
+        quad_J = torch.zeros((0, 0), device=device)
+        quad_h = torch.zeros((0,), device=device)
+        quad_c = torch.zeros((), device=device)
+    lp_bucket_idx = tuple(
+        i for i, fused in enumerate(fused_flags) if not fused
+    )
+
+    meta.np_global = {
+        "disc_sizes": disc_sizes,
+        "disc_vals": disc_vals,
+        "cont_lo": cont_lo,
+        "cont_hi": cont_hi,
+        "cont_ipoints": cont_ip,
+        "cont_counts": np.asarray(cont_counts, np.float32),
+        "disc_counts": np.asarray(disc_counts, np.float32),
+    }
+    if has_quad and not quad_sparse:
+        meta.np_global["quad_J"] = np.asarray(J, np.float32)
+        meta.np_global["quad_h"] = np.asarray(h, np.float32)
+
+    return CompiledFG(
+        buckets=tuple(buckets),
+        n_cont=n_cont,
+        n_disc=n_disc,
+        max_v=max_v,
+        has_quad=has_quad,
+        lp_bucket_idx=lp_bucket_idx,
+        meta=meta,
+        device=device,
+        disc_sizes=_tensor(disc_sizes, device),
+        disc_vals=_tensor(disc_vals, device),
+        cont_lo=_tensor(cont_lo, device),
+        cont_hi=_tensor(cont_hi, device),
+        cont_ipoints=_tensor(cont_ip, device),
+        cont_counts=_tensor(cont_counts, device, torch.float32),
+        disc_counts=_tensor(disc_counts, device, torch.float32),
+        quad_J=quad_J,
+        quad_h=quad_h,
+        quad_c=quad_c,
+        quad_diag=quad_diag,
+        quad_ell_col=quad_ell_col,
+        quad_ell_w=quad_ell_w,
+        quad_sparse=quad_sparse,
+        quad_dia_offsets=quad_dia_offsets,
+        quad_dia_w=quad_dia_w,
+        quad_dia_pos=quad_dia_pos,
+        quad_dia_inv=quad_dia_inv,
+    )

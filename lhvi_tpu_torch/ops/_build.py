@@ -1,0 +1,103 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ONE shared library with a plain C interface, loaded with
+``ctypes``. The library lives in ``ops/_build/`` under a name keyed by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing is downloaded; a missing ``nvcc`` or a
+failed build raises with the compiler's output.
+
+Each exported C function launches one kernel on the stream it is given
+and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
+into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).parent / "csrc"
+_BUILD = Path(__file__).parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+build_log = ""  # nvcc's output (ptxas register/shared-memory report)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U64 = ctypes.c_uint64
+_SIGNATURES = {
+    # x, p, J, h, inv_mass, eps, x_out, p_out, C, n, n_steps, stream
+    "lhvi_quad_leapfrog": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, diag, wdia, h, inv_mass, std, p0, eps, x_out, log_acc,
+    # C, n_emb, K, offsets (host int[K]), n_steps, seed, offset, stream
+    "lhvi_dia_proposal": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _P, _I, _U64, _U64, _P),
+}
+
+
+def _nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> Path:
+    """The cached library's path for the current sources (built if absent)."""
+    global build_log
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sorted(_CSRC.glob("*.cu*")):
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    out = _BUILD / f"liblhvi_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    _BUILD.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = r.stdout + r.stderr
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(library_path()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        handle.lhvi_cuda_error_string.argtypes = [ctypes.c_int]
+        handle.lhvi_cuda_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = lib().lhvi_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed: error {code} ({msg})")

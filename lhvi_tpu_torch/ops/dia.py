@@ -1,0 +1,294 @@
+"""Banded (DIA) quadratic targets: detection and the fused HMC proposal
+(PyTorch port of ``lhvi_tpu/ops/dia.py``).
+
+Grid, chain and other banded information matrices have a handful of
+diagonals: ``J x = diag·x + Σ_k w_k · x[i + o_k]`` for a small static
+offset set ``{o_k}``. The host half (``ell_to_dia``, ``pos_to_inv``) is the
+reference's numpy code. The device half runs the whole HMC proposal —
+momentum draw, trajectory, energies, log-accept — in ONE kernel (K2,
+``csrc/dia_proposal.cu``) that keeps a chain's positions and momenta in
+shared memory for the whole trajectory.
+
+Correctness of wrapped indices: an entry ``w_k[i] ≠ 0`` implies the edge
+(i, i+o_k) exists, hence ``0 ≤ i+o_k < n`` — every wrapped-around neighbour
+is multiplied by a structural zero (asserted in ``ell_to_dia``), so the
+plain version's ``torch.roll`` and the kernel's modular index are exact.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from lhvi_tpu_torch.ops import _build
+from lhvi_tpu_torch.ops.leapfrog import _check_f32, eps_tensor
+
+# Widest embedded row K2 takes: one chain's positions and momenta in
+# shared memory, 2·4·n_emb bytes within the H100's 227 KB per block. Wider
+# banded models take the ELL path (as the reference does past its own cap).
+DIA_MAX_EMB = 28 * 1024
+
+
+def ell_to_dia(col: np.ndarray, w: np.ndarray, pos: np.ndarray = None,
+               max_offsets: int = 8):
+    """Detect a banded structure in padded-neighbor (ELL) tables.
+
+    col/w: [n, D] neighbor tables (``CompiledFG.quad_ell_col/_w``).
+    pos: optional [n] EMBEDDING of each latent into a larger banded
+    coordinate space — evidence conditioning compacts latent indices, so
+    a grid with observed nodes has irregular latent-index offsets, while
+    its declaration-order positions (latents + observed interleaved)
+    keep the {±1, ±W} template; the embedded vector simply carries inert
+    zero lanes at evidence positions.
+
+    Returns ``(offsets, wdia, pos)`` — a static tuple of K ≤ max_offsets
+    diagonal offsets, the f32 [K, n_emb] per-diagonal weights with
+    ``(J x)[pos[i]] = Σ_k wdia[k, pos[i]]·x_emb[pos[i] + offsets[k]]``
+    (diagonal handled separately), and the embedding (``None`` when it
+    is the identity) — or ``None`` when the active offsets don't fit the
+    budget (then the ELL gather path stands).
+    """
+    col = np.asarray(col)
+    w = np.asarray(w, np.float32)
+    n, D = col.shape
+    if n == 0:
+        return None
+    if pos is not None:
+        pos = np.asarray(pos, np.int64)
+        if np.array_equal(pos, np.arange(n)):
+            pos = None
+    if pos is None:
+        n_emb = n
+        posv = np.arange(n, dtype=np.int64)
+    else:
+        n_emb = int(pos.max()) + 1
+        posv = pos
+    offs = posv[col] - posv[:, None]  # [n, D] embedded-coordinate offsets
+    active = w != 0.0
+    if not active.any():
+        return (), np.zeros((0, n_emb), np.float32), pos
+    uoffs = np.unique(offs[active])
+    if len(uoffs) > max_offsets:
+        return None
+    wdia = np.zeros((len(uoffs), n_emb), np.float32)
+    for k, o in enumerate(uoffs):
+        contrib = np.where(active & (offs == o), w, 0.0).sum(axis=1)
+        np.add.at(wdia[k], posv, contrib)
+        # structural-zero invariant that makes the wrapped index exact
+        i = np.flatnonzero(wdia[k])
+        assert i.size == 0 or (0 <= i.min() + o and i.max() + o < n_emb)
+    return tuple(int(o) for o in uoffs), wdia, pos
+
+
+def pos_to_inv(pos: np.ndarray, n: int) -> np.ndarray:
+    """Inverse embedding index: i32 [n_emb] mapping each embedded lane to
+    its latent index, with the sentinel ``n`` at gap (evidence) lanes, so
+    the embedding is a gather (``_embed_gather``)."""
+    pos = np.asarray(pos)
+    n_emb = int(pos.max()) + 1
+    inv = np.full(n_emb, n, np.int32)
+    inv[pos] = np.arange(n, dtype=np.int32)
+    return inv
+
+
+def _embed(a, pos, n_emb: int):
+    """Scatter latent-space rows [..., n] into the declaration-order
+    embedded space [..., n_emb] (zeros at evidence positions)."""
+    out = torch.zeros(a.shape[:-1] + (n_emb,), dtype=a.dtype, device=a.device)
+    out[..., pos] = a
+    return out
+
+
+def _embed_gather(a, inv):
+    """Gather-based embedding: append one zero column and index by the
+    inverse map (gaps hit the sentinel column)."""
+    az = torch.cat([a, torch.zeros(a.shape[:-1] + (1,), dtype=a.dtype,
+                                   device=a.device)], dim=-1)
+    return az[..., inv]
+
+
+def dia_matvec(x, diag, offsets, wdia, pos=None):
+    """``J @ x`` for a batch in DIA form: x [C, n] → [C, n] (torch ops).
+
+    Shift-multiply-accumulate over the K diagonals; ``pos`` embeds and
+    extracts around the shifts when the weights live in declaration-order
+    coordinates."""
+    if pos is not None:
+        n_emb = wdia.shape[1]
+        y = _embed(x * diag[None], pos, n_emb)
+        xe = _embed(x, pos, n_emb)
+    else:
+        y = x * diag[None]
+        xe = x
+    for k, o in enumerate(offsets):
+        y = y + wdia[k][None] * torch.roll(xe, -o, dims=-1)
+    return y[..., pos] if pos is not None else y
+
+
+def _lp(x, h, g):
+    """½·Σ x·(h+g) — the pure-quadratic log-potential up to the constant
+    (lp = c + ½·x·(h + g) with g = h − Jx)."""
+    return 0.5 * torch.sum(x * (h[None] + g), dim=-1)
+
+
+def _torch_dia_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
+                        n_steps: int):
+    """Plain position-Verlet trajectory on a banded target. Returns
+    ``(x1, p1, lp0, lp1)`` — endpoint log-potentials (sans constant)."""
+
+    def matvec(x):
+        return dia_matvec(x, diag, offsets, wdia)
+
+    g0 = h[None] - matvec(x)
+    lp0 = _lp(x, h, g0)
+    if n_steps == 0:
+        return x, p, lp0, lp0
+    m = p + 0.5 * eps * g0
+    for _ in range(n_steps - 1):
+        x = x + eps * inv_mass[None] * m
+        g = h[None] - matvec(x)
+        m = m + eps * g
+    x = x + eps * inv_mass[None] * m
+    g1 = h[None] - matvec(x)
+    p1 = m + 0.5 * eps * g1
+    return x, p1, lp0, _lp(x, h, g1)
+
+
+def dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
+                      n_steps: int, pos=None):
+    """Batched leapfrog on a BANDED quadratic target (torch ops).
+
+    Returns ``(x1, p1, lp0, lp1)`` — endpoint positions/momenta plus the
+    endpoint log-potentials WITHOUT the constant. ``pos`` (declaration-
+    order embedding) is applied once around the whole trajectory: evidence
+    lanes are inert there (diag = h = im = 0). The reference's Pallas
+    trajectory kernel for this function (``_dia_leapfrog_kernel``, K6) is
+    still to be ported; K2 carries the sampler's banded path.
+    """
+    if pos is not None:
+        n_emb = wdia.shape[1]
+        x = _embed(x, pos, n_emb)
+        p = _embed(p, pos, n_emb)
+        diag = _embed(diag, pos, n_emb)
+        h = _embed(h, pos, n_emb)
+        inv_mass = _embed(inv_mass, pos, n_emb)
+    out = _torch_dia_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
+                              n_steps)
+    if pos is not None:
+        # lp is embedding-invariant (gap lanes are zero)
+        out = (out[0][..., pos], out[1][..., pos], out[2], out[3])
+    return out
+
+
+# XORed into K2's Philox key so that its counters, laid out (lane quad,
+# chain, offset), never reproduce the bits of PyTorch's own Philox draws
+# from the same generator, which share its seed.
+_KEY_TAG = 0x5851F42D4C957F2D
+
+
+def _kinetic(im, p):
+    return 0.5 * torch.sum(im[None, :] * p * p, dim=-1)
+
+
+def _momentum_std(im):
+    """Per-lane momentum scale 1/√inv_mass; 0 at gap lanes (im = 0), so
+    they draw zero momentum and stay inert end to end."""
+    return torch.where(im > 0, torch.sqrt(1.0 / torch.clamp(im, min=1e-12)),
+                       torch.zeros((), dtype=im.dtype, device=im.device))
+
+
+def _cuda_dia_proposal(x, diag, offsets, wdia, h, im, std, eps,
+                       n_steps: int, seed: int, offset: int, p0=None):
+    """Launch K2 on EMBEDDED rows: x [C, n_emb] → (x1 [C, n_emb],
+    log_acc [C]). ``p0`` (test mode) replaces the in-kernel momentum draw;
+    otherwise momenta come from Philox keyed by ``seed`` with counter
+    (lane quad, chain, ``offset``)."""
+    C, n = x.shape
+    K = len(offsets)
+    dev = x.device
+    eps = eps_tensor(eps, dev)
+    if n > DIA_MAX_EMB:
+        raise ValueError(f"n_emb {n} exceeds DIA_MAX_EMB {DIA_MAX_EMB}")
+    if K > 8:
+        raise ValueError(f"{K} offsets; K2 takes at most 8")
+    for name, t, shape in (("x", x, (C, n)), ("diag", diag, (n,)),
+                           ("wdia", wdia, (K, n)), ("h", h, (n,)),
+                           ("inv_mass", im, (n,)), ("std", std, (n,)),
+                           ("eps", eps, ())):
+        _check_f32(name, t, dev, shape)
+    if p0 is not None:
+        _check_f32("p0", p0, dev, (C, n))
+    xo = torch.empty_like(x)
+    log_acc = torch.empty((C,), dtype=torch.float32, device=dev)
+    offs = (ctypes.c_int * max(K, 1))(*offsets)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _build.lib().lhvi_dia_proposal(
+        x.data_ptr(), diag.data_ptr(), wdia.data_ptr(), h.data_ptr(),
+        im.data_ptr(), std.data_ptr(),
+        None if p0 is None else p0.data_ptr(), eps.data_ptr(),
+        xo.data_ptr(), log_acc.data_ptr(), C, n, K,
+        ctypes.cast(offs, ctypes.c_void_p), int(n_steps),
+        seed & (2**64 - 1), offset & (2**64 - 1), stream)
+    _build.check(code, "dia_proposal")
+    dia_hmc_proposal.launches += 1
+    return xo, log_acc
+
+
+def dia_hmc_proposal(gen, xc, diag, offsets, wdia, h, inv_mass, eps,
+                     n_steps: int, pos=None, inv=None, p0=None):
+    """One full HMC proposal on a banded target: sample momenta,
+    integrate the whole trajectory, return ``(x1 [C, n], log_acc [C])``.
+
+    Everything between the momentum draw and the accept test runs in
+    EMBEDDED coordinates, entered and left by one gather each way through
+    ``inv``; gap lanes get std 0 via their zero inv_mass.
+
+    CUDA tensors go through kernel K2 (``dia_hmc_proposal.launches`` counts
+    its launches): momenta are drawn in-kernel from Philox keyed by
+    ``gen.initial_seed()`` and ``gen``'s Philox offset, which the call
+    advances as a draw of its own would, so consecutive proposals and
+    consecutive runs on one generator get fresh momenta. Both are host
+    values: no device value is read back. CPU tensors take the plain version:
+    ``torch.randn`` momenta from ``gen``, then ``_torch_dia_leapfrog``.
+    ``p0`` (latent coordinates, [C, n]) replaces the momentum draw on
+    either route, so one trajectory can be compared exactly.
+    """
+    if pos is not None:
+        x = _embed_gather(xc, inv)
+        diag = _embed_gather(diag, inv)
+        h = _embed_gather(h, inv)
+        im = _embed_gather(inv_mass, inv)
+        p0 = None if p0 is None else _embed_gather(p0, inv)
+    else:
+        x, im = xc, inv_mass
+    std = _momentum_std(im)
+    if x.is_cuda:
+        seed = offset = 0
+        if p0 is None:
+            seed, offset = gen.initial_seed() ^ _KEY_TAG, gen.get_offset()
+            gen.set_offset(offset + 4)  # CUDA offsets step in fours
+        x1, log_acc = _cuda_dia_proposal(
+            x.contiguous(), diag.contiguous(), offsets, wdia, h.contiguous(),
+            im.contiguous(), std, eps, n_steps, seed, offset,
+            None if p0 is None else p0.contiguous())
+    elif x.device.type == "cpu":
+        if p0 is None:
+            p0 = std[None, :] * torch.randn(x.shape, generator=gen,
+                                            dtype=x.dtype)
+        x1, p1, lp0, lp1 = _torch_dia_leapfrog(
+            x, p0, diag, offsets, wdia, h, im, eps, n_steps)
+        log_acc = torch.clamp((lp1 - lp0) + (_kinetic(im, p0)
+                                             - _kinetic(im, p1)), max=0.0)
+    else:
+        raise NotImplementedError(f"dia_hmc_proposal: no route for {x.device}")
+    log_acc = torch.where(torch.isfinite(log_acc), log_acc,
+                          torch.full((), -math.inf, device=log_acc.device))
+    if pos is not None:
+        x1 = x1[..., pos]
+    return x1, log_acc
+
+
+dia_hmc_proposal.launches = 0

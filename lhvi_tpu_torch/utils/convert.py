@@ -1,0 +1,92 @@
+"""Carry the reference's compiled tables and sampler state into the port.
+
+Both functions take plain numpy arrays (read off the JAX objects with
+``np.asarray``), so this module imports nothing of JAX: with them, both
+packages compute the same thing from the same numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lhvi_tpu_torch.engines.hmc import HMCState
+from lhvi_tpu_torch.fg.compile import CompiledFG, _tensor
+
+QUAD_TABLES = ("quad_J", "quad_h", "quad_c", "quad_diag", "quad_ell_col",
+               "quad_ell_w", "quad_dia_offsets", "quad_dia_w", "quad_dia_pos",
+               "quad_dia_inv", "cont_lo", "cont_hi", "n_cont")
+
+
+def compiled_from_numpy(tables: dict, device) -> CompiledFG:
+    """The port's fused-quadratic IR from the reference's arrays.
+
+    ``tables`` holds the keys of ``QUAD_TABLES`` (``None`` where the
+    reference's field is ``None``; ``quad_dia_offsets`` is a tuple of ints
+    and ``n_cont`` an int). The result has no buckets and no discrete
+    latents: it carries exactly the information form the HMC proposal
+    reads, so the sampler runs on it as on a compiled graph.
+    """
+    missing = [k for k in QUAD_TABLES if k not in tables]
+    if missing:
+        raise KeyError(f"compiled_from_numpy: missing tables {missing}")
+    device = torch.device(device)
+    n = int(tables["n_cont"])
+
+    def opt(k):
+        v = tables[k]
+        return None if v is None else _tensor(v, device)
+
+    quad_J = np.asarray(tables["quad_J"], np.float32)
+    sparse = tables["quad_diag"] is not None
+    offsets = tables["quad_dia_offsets"]
+    return CompiledFG(
+        buckets=(),
+        n_cont=n,
+        n_disc=0,
+        max_v=1,
+        has_quad=True,
+        lp_bucket_idx=(),
+        meta=None,
+        device=device,
+        disc_sizes=torch.zeros(0, dtype=torch.int64, device=device),
+        disc_vals=torch.zeros((0, 1), device=device),
+        cont_lo=_tensor(np.asarray(tables["cont_lo"], np.float32), device),
+        cont_hi=_tensor(np.asarray(tables["cont_hi"], np.float32), device),
+        cont_ipoints=torch.zeros((n, 1), device=device),
+        cont_counts=torch.ones(n, device=device),
+        disc_counts=torch.zeros(0, device=device),
+        quad_J=_tensor(quad_J, device),
+        quad_h=_tensor(np.asarray(tables["quad_h"], np.float32), device),
+        quad_c=_tensor(np.asarray(tables["quad_c"], np.float32), device),
+        quad_diag=opt("quad_diag"),
+        quad_ell_col=opt("quad_ell_col"),
+        quad_ell_w=opt("quad_ell_w"),
+        quad_sparse=sparse,
+        quad_dia_offsets=None if offsets is None else tuple(int(o) for o in offsets),
+        quad_dia_w=opt("quad_dia_w"),
+        quad_dia_pos=opt("quad_dia_pos"),
+        quad_dia_inv=opt("quad_dia_inv"),
+    )
+
+
+def hmc_state_from_numpy(state_dict: dict, device) -> HMCState:
+    """The port's ``HMCState`` from a reference state's fields (e.g.
+    ``{k: np.asarray(v) for k, v in state._asdict().items()}``).
+
+    Reads the fields the port's state has (positions, discrete state,
+    dual-averaging and Welford accumulators, inverse mass); the
+    reference's mode-swap accumulators have no counterpart in this slice
+    and are not read. Floats become f32 and integers int64.
+    """
+    missing = [k for k in HMCState._fields if k not in state_dict]
+    if missing:
+        raise KeyError(f"hmc_state_from_numpy: missing fields {missing}")
+    device = torch.device(device)
+    out = {}
+    for k in HMCState._fields:
+        a = np.asarray(state_dict[k])
+        if np.issubdtype(a.dtype, np.floating):
+            a = a.astype(np.float32)
+        out[k] = _tensor(a, device)
+    return HMCState(**out)

@@ -1,0 +1,181 @@
+"""K1 and K2 against their plain versions on an NVIDIA GPU, at small shapes
+that reach the kernels' edge cases (ragged chain tiles, both K1 tile
+configurations, zero steps, gap lanes).
+
+Marked ``cuda``: each test skips where no CUDA device is present. This
+file imports only torch and the port (no JAX), so it runs on the card's
+machine with ``python -m pytest --noconftest -m cuda
+tests/test_torch_cuda_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import lhvi_tpu_torch as lt  # noqa: E402
+from lhvi_tpu_torch.models.toy import gaussian_grid  # noqa: E402
+from lhvi_tpu_torch.ops import dia, leapfrog as lf  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _rel(a, b):
+    d = (a.double() - b.double()).abs()
+    return float((d / torch.clamp(b.double().abs(), min=1.0)).max())
+
+
+@pytest.mark.parametrize("n,C", [(82, 100), (37, 1), (300, 45), (529, 3)])
+@pytest.mark.parametrize("n_steps", [0, 1, 3])
+def test_quad_leapfrog_kernel_matches_plain(dev, n, C, n_steps):
+    """n ≤ 256 takes the resident layout (64 chains, J in shared memory),
+    n > 256 the tiled one (32 chains, 16 × 128 J tiles); n and C are ragged
+    against both tilings. Tolerance 1e-5·max(1,|plain|): f32 dot products
+    in another order."""
+    g = torch.Generator(dev).manual_seed(n * 7 + C)
+    A = torch.randn((n, n), generator=g, device=dev) / n**0.5
+    J = (A @ A.T + torch.eye(n, device=dev)).contiguous()
+    x = torch.randn((C, n), generator=g, device=dev)
+    p = torch.randn((C, n), generator=g, device=dev)
+    h = torch.randn((n,), generator=g, device=dev)
+    im = 0.5 + torch.rand((n,), generator=g, device=dev)
+    eps = torch.full((), 0.07, device=dev)
+    before = lf.quad_leapfrog.launches
+    got = lf.quad_leapfrog(x, p, J, h, im, eps, n_steps)
+    want = lf._torch_quad_leapfrog(x, p, J, h, im, eps, n_steps)
+    torch.cuda.synchronize()
+    assert lf.quad_leapfrog.launches == before + 1
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-5
+
+
+def test_quad_leapfrog_kernel_rejects_bad_input(dev):
+    x = torch.zeros((4, 8), device=dev)
+    J = torch.eye(8, device=dev)
+    v = torch.ones(8, device=dev)
+    with pytest.raises(TypeError):
+        lf.quad_leapfrog(x.double(), x.double(), J, v, v, 0.1, 2)
+    with pytest.raises(ValueError):
+        lf.quad_leapfrog(x, x, J[:, :4], v, v, 0.1, 2)
+    with pytest.raises(ValueError):
+        lf.quad_leapfrog(x.t(), x.t(), torch.eye(4, device=dev), v[:4],
+                         v[:4], 0.1, 2)
+
+
+@pytest.fixture(scope="module")
+def grid32(dev):
+    g, _ = gaussian_grid(32, 32, seed=0, evidence_frac=0.2)
+    fg = lt.compile_graph(g, dev, quad_max_n=256)
+    assert fg.quad_dia_offsets == (-32, -1, 1, 32)
+    return fg
+
+
+@pytest.mark.parametrize("n_steps", [0, 1, 5])
+def test_dia_proposal_kernel_given_p0_matches_plain(dev, grid32, n_steps):
+    """Exact mode (p0 from memory) through the wrapper, against the plain
+    route on the same tensors moved to the CPU. Tolerances: x1
+    1e-5·max(1,|plain|); log_acc 1e-5·(|lp0| + ke0)."""
+    fg = grid32
+    C, n = 7, fg.n_cont
+    g = torch.Generator(dev).manual_seed(n_steps)
+    xc = 2.0 * torch.randn((C, n), generator=g, device=dev)
+    im = 0.5 + torch.rand((n,), generator=g, device=dev)
+    p0 = torch.randn((C, n), generator=g, device=dev)
+    args = (fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h, im,
+            torch.full((), 0.1, device=dev), n_steps)
+    kw = dict(pos=fg.quad_dia_pos, inv=fg.quad_dia_inv, p0=p0)
+    before = dia.dia_hmc_proposal.launches
+    x1, lacc = dia.dia_hmc_proposal(g, xc, *args, **kw)
+    torch.cuda.synchronize()
+    assert dia.dia_hmc_proposal.launches == before + 1
+    cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    x1p, laccp = dia.dia_hmc_proposal(
+        None, xc.cpu(), *map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
+    assert _rel(x1.cpu(), x1p) < 1e-5
+    lp0 = dia.dia_quad_leapfrog(
+        *map(cpu, (xc, p0, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w,
+                   fg.quad_h, im)), 0.1, 0, pos=fg.quad_dia_pos.cpu())[2]
+    scale = lp0.abs() + 0.5 * (im.cpu()[None] * p0.cpu() ** 2).sum(-1)
+    assert torch.all((lacc.cpu() - laccp).abs() <= 1e-5 * scale)
+    if n_steps == 0:
+        assert torch.equal(lacc.cpu(), torch.zeros(C))
+        assert torch.equal(x1, xc)
+
+
+def test_dia_proposal_kernel_momenta(dev, grid32):
+    """In-kernel momenta: deterministic per generator seed and state, fresh
+    on each call (the call advances the generator), standard normal in
+    distribution (one step reads them back)."""
+    fg = grid32
+    C = 2048
+    xc = torch.zeros((C, fg.n_cont), device=dev)
+    im = torch.ones(fg.n_cont, device=dev)
+    eps = 0.01
+    args = (fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h, im,
+            eps, 1)
+    kw = dict(pos=fg.quad_dia_pos, inv=fg.quad_dia_inv)
+    gen = torch.Generator(dev).manual_seed(3)
+    a, _ = dia.dia_hmc_proposal(gen, xc, *args, **kw)
+    c, _ = dia.dia_hmc_proposal(gen, xc, *args, **kw)
+    gen.manual_seed(3)
+    b, _ = dia.dia_hmc_proposal(gen, xc, *args, **kw)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # from x = 0: x1 = ε·(p0 + ½ε·h)
+    z = (a.double() / eps - 0.5 * eps * fg.quad_h.double()[None]).cpu().numpy()
+    N = z.size
+    assert abs(z.mean()) < 5 / N**0.5
+    assert abs(z.var() - 1) < 5 * (2 / N) ** 0.5
+    assert np.abs(z.mean(0)).max() * C**0.5 < 5.0
+
+
+@pytest.mark.parametrize("rows,quad_max_n", [(10, 4096), (24, 256)])
+def test_transitions_never_sync_with_the_host(dev, rows, quad_max_n):
+    """Adapting transitions on the dense (K1) and banded (K2) paths run
+    with no device-to-host synchronisation: the step size stays a device
+    tensor and K2's seed and offset are the generator's host state."""
+    from lhvi_tpu_torch.engines import hmc
+
+    g, _ = gaussian_grid(rows, rows, seed=0, evidence_frac=0.2)
+    fg = lt.compile_graph(g, dev, quad_max_n=quad_max_n)
+    cfg = hmc.HMCConfig(init_step_size=0.1)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = hmc.init_hmc_state(fg, gen, cfg, 128)
+    launches = lf.quad_leapfrog.launches + dia.dia_hmc_proposal.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, acc = hmc.hmc_transition(fg, cfg, state, gen, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (lf.quad_leapfrog.launches + dia.dia_hmc_proposal.launches
+            == launches + 3)
+    assert torch.isfinite(state.xc).all() and torch.isfinite(state.log_eps)
+
+
+def test_dia_runs_on_one_generator_draw_fresh_momenta(dev, grid32):
+    """Two consecutive banded runs from one generator, started from the
+    same state, move differently: K2's momentum stream follows the
+    generator, not a counter that restarts with each run."""
+    from lhvi_tpu_torch.engines import hmc
+
+    fg = grid32
+    cfg = hmc.HMCConfig(init_step_size=0.1)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = hmc.init_hmc_state(fg, gen, cfg, 16)
+    before = dia.dia_hmc_proposal.launches
+    runs = [hmc.hmc_transition(fg, cfg, state, gen, False)[0].xc
+            for _ in range(2)]
+    assert dia.dia_hmc_proposal.launches == before + 2
+    moved = [(r != state.xc).any(dim=1) for r in runs]
+    both = moved[0] & moved[1]
+    assert bool(both.any())
+    assert not torch.equal(runs[0][both], runs[1][both])

@@ -1,0 +1,219 @@
+"""The banded (DIA) path of the port held to the JAX reference.
+
+Band detection is the same numpy code on both sides, so its outputs are
+EQUAL. Matvecs and trajectories are f32 arithmetic in another summation
+order: rtol 1e-5 (atol 1e-5 where entries are near 0, e.g. gap lanes).
+K2's momenta are drawn by Philox on the card and are compared only
+statistically there (chip_smoke.py); here p0 is given to both sides.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+import lhvi_tpu.models.toy as ref_toy  # noqa: E402
+from lhvi_tpu import compile_graph as ref_compile  # noqa: E402
+from lhvi_tpu.ops import dia as ref_dia  # noqa: E402
+from lhvi_tpu.ops.leapfrog import ell_matvec as ref_ell_matvec  # noqa: E402
+
+import lhvi_tpu_torch as lt  # noqa: E402
+import lhvi_tpu_torch.models.toy as toy  # noqa: E402
+from lhvi_tpu_torch.ops import dia  # noqa: E402
+from lhvi_tpu_torch.ops.leapfrog import ell_matvec  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def grids():
+    """32×32 evidence grid: dense (oracle J) and forced ELL → DIA, in the
+    reference; the port's own DIA compile of the same graph."""
+    g_ref, _ = ref_toy.gaussian_grid(32, 32, seed=0, evidence_frac=0.2)
+    ref_dense = ref_compile(g_ref, quad_max_n=10_000)
+    ref_sparse = ref_compile(g_ref, quad_max_n=256)
+    g, _ = toy.gaussian_grid(32, 32, seed=0, evidence_frac=0.2)
+    fg = lt.compile_graph(g, "cpu", quad_max_n=256)
+    assert fg.quad_dia_offsets == (-32, -1, 1, 32)
+    assert fg.n_cont == 802 and fg.quad_dia_w.shape == (4, 1024)
+    return ref_dense, ref_sparse, fg
+
+
+def test_band_detection_equals_reference(grids):
+    _, ref, fg = grids
+    col, w = np.asarray(ref.quad_ell_col), np.asarray(ref.quad_ell_w)
+    pos = np.asarray(ref.quad_dia_pos)
+    rng = np.random.default_rng(3)
+    full_pos = np.sort(rng.choice(2 * len(pos), len(pos), replace=False))
+    # latent coordinates (evidence-compacted) and a random embedding break
+    # the band; the declaration-order embedding restores it
+    for p in (None, pos, full_pos):
+        got, want = dia.ell_to_dia(col, w, pos=p), ref_dia.ell_to_dia(col, w, pos=p)
+        assert (got is None) == (want is None)
+        assert (want is None) == (p is not pos)
+        if want is None:
+            continue
+        assert got[0] == want[0]
+        np.testing.assert_array_equal(got[1], want[1])
+        assert (got[2] is None) == (want[2] is None)
+        if got[2] is not None:
+            np.testing.assert_array_equal(got[2], want[2])
+            np.testing.assert_array_equal(dia.pos_to_inv(got[2], len(col)),
+                                          ref_dia.pos_to_inv(want[2], len(col)))
+    # a dense row pattern is rejected by both
+    n = 32
+    dcol = np.tile(np.arange(n, dtype=np.int32), (n, 1))
+    assert dia.ell_to_dia(dcol, np.ones((n, n), np.float32)) is None
+
+
+def test_dia_matvec_equals_ell_and_dense(grids):
+    """DIA matvec = ELL matvec = dense J·x on the same states."""
+    ref_dense, _, fg = grids
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(7, fg.n_cont)).astype(np.float32))
+    got = dia.dia_matvec(x, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w,
+                         fg.quad_dia_pos)
+    ell = ell_matvec(x, fg.quad_diag, fg.quad_ell_col, fg.quad_ell_w)
+    dense = x.numpy().astype(np.float64) @ np.asarray(ref_dense.quad_J,
+                                                      np.float64).T
+    np.testing.assert_allclose(got.numpy(), ell.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), dense, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        ell.numpy(), np.asarray(ref_ell_matvec(
+            jnp.asarray(x.numpy()), *(jnp.asarray(np.asarray(a)) for a in (
+                fg.quad_diag, fg.quad_ell_col, fg.quad_ell_w)))),
+        rtol=1e-5, atol=1e-5)
+
+
+def _embedded_inputs(fg, rng, C):
+    n_emb = fg.quad_dia_w.shape[1]
+    pos = fg.quad_dia_pos.numpy()
+
+    def emb(a):
+        out = np.zeros(a.shape[:-1] + (n_emb,), np.float32)
+        out[..., pos] = a
+        return out
+
+    x = rng.normal(0.0, 2.0, (C, fg.n_cont)).astype(np.float32)
+    p = rng.normal(size=(C, fg.n_cont)).astype(np.float32)
+    im = rng.uniform(0.5, 1.5, fg.n_cont).astype(np.float32)
+    return x, p, im, emb
+
+
+@pytest.mark.parametrize("n_steps", [0, 1, 6])
+def test_plain_dia_leapfrog_matches_reference(grids, n_steps):
+    _, _, fg = grids
+    x, p, im, emb = _embedded_inputs(fg, np.random.default_rng(1), 9)
+    ins = [emb(a) for a in (x, p, fg.quad_diag.numpy(), fg.quad_h.numpy(), im)]
+    wdia = fg.quad_dia_w.numpy()
+    ref = ref_dia._jnp_dia_leapfrog(
+        jnp.asarray(ins[0]), jnp.asarray(ins[1]), jnp.asarray(ins[2]),
+        fg.quad_dia_offsets, jnp.asarray(wdia), jnp.asarray(ins[3]),
+        jnp.asarray(ins[4]), 0.07, n_steps)
+    t = [torch.from_numpy(a) for a in ins]
+    got = dia._torch_dia_leapfrog(t[0], t[1], t[2], fg.quad_dia_offsets,
+                                  torch.from_numpy(wdia), t[3], t[4], 0.07,
+                                  n_steps)
+    for a, b, name in zip(got, ref, ("x1", "p1", "lp0", "lp1")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5, err_msg=(name, n_steps))
+
+
+def test_dia_hmc_proposal_given_p0_matches_reference(grids):
+    """The wrapper's log-accept for a given p0 equals the reference's
+    proposal algebra (dia.py:516-532) on the same momenta, forward from a
+    dispersed state (downhill: log_acc clips to 0) and back from its
+    endpoint with reversed momenta (uphill: log_acc < 0). Tolerance
+    1e-5·(|lp0| + ke0): log_acc is the difference of two f32 energy sums
+    of that size."""
+    _, _, fg = grids
+    x, p, im, emb = _embedded_inputs(fg, np.random.default_rng(2), 8)
+    pos = fg.quad_dia_pos.numpy()
+    wdia = jnp.asarray(fg.quad_dia_w.numpy())
+    ime = jnp.asarray(emb(im))
+    dge, he = (jnp.asarray(emb(a.numpy())) for a in (fg.quad_diag, fg.quad_h))
+    ke = lambda q: 0.5 * jnp.sum(ime[None] * q * q, axis=-1)  # noqa: E731
+    negative = 0
+    for direction in ("forward", "reversed"):
+        xe, pe = jnp.asarray(emb(x)), jnp.asarray(emb(p))
+        x1r, p1r, lp0, lp1 = ref_dia._jnp_dia_leapfrog(
+            xe, pe, dge, fg.quad_dia_offsets, wdia, he, ime, 0.05, 6)
+        lacc_ref = np.asarray(jnp.minimum(0.0, (lp1 - lp0) + (ke(pe) - ke(p1r))))
+        x1, lacc = dia.dia_hmc_proposal(
+            None, torch.from_numpy(x), fg.quad_diag, fg.quad_dia_offsets,
+            fg.quad_dia_w, fg.quad_h, torch.from_numpy(im), 0.05, 6,
+            pos=fg.quad_dia_pos, inv=fg.quad_dia_inv, p0=torch.from_numpy(p))
+        scale = np.abs(np.asarray(lp0)) + np.asarray(ke(pe))
+        assert np.all(np.abs(lacc.numpy() - lacc_ref) <= 1e-5 * scale), direction
+        assert np.all(lacc.numpy() <= 0.0)
+        np.testing.assert_allclose(x1.numpy(), np.asarray(x1r)[:, pos],
+                                   rtol=1e-5, atol=1e-5, err_msg=direction)
+        negative += int(np.sum(lacc_ref < 0))
+        x = np.array(x1r)[:, pos]
+        p = -np.array(p1r)[:, pos]
+    assert negative >= 8  # the uphill leg exercises the unclipped algebra
+
+
+def test_dia_hmc_proposal_cpu_draw_is_plain(grids):
+    """Without p0 the CPU route draws std·randn momenta from the generator
+    and never touches the kernel counter; std is 0 at gap lanes."""
+    _, _, fg = grids
+    x = torch.zeros(4, fg.n_cont)
+    im = torch.full((fg.n_cont,), 2.0)
+    before = dia.dia_hmc_proposal.launches
+    a = dia.dia_hmc_proposal(torch.Generator().manual_seed(5), x,
+                             fg.quad_diag, fg.quad_dia_offsets,
+                             fg.quad_dia_w, fg.quad_h, im, 0.05, 4,
+                             pos=fg.quad_dia_pos, inv=fg.quad_dia_inv)
+    b = dia.dia_hmc_proposal(torch.Generator().manual_seed(5), x,
+                             fg.quad_diag, fg.quad_dia_offsets,
+                             fg.quad_dia_w, fg.quad_h, im, 0.05, 4,
+                             pos=fg.quad_dia_pos, inv=fg.quad_dia_inv)
+    assert dia.dia_hmc_proposal.launches == before
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.isfinite(a[0]).all() and (a[1] <= 0).all()
+
+
+@pytest.mark.parametrize("trial", range(6))
+def test_fuzz_band_detection_and_matvec(trial):
+    """Random banded matrices in ELL form, with and without a random
+    monotone embedding: both packages detect the same offsets and weights,
+    and the port's DIA matvec equals the dense J·x (rtol/atol 1e-4, f32
+    sums of up to 8 terms against float64)."""
+    rng = np.random.default_rng(100 + trial)
+    n = int(rng.integers(8, 60))
+    use_pos = trial % 2 == 1
+    if use_pos:
+        n_emb = n + int(rng.integers(1, n))
+        pos = np.sort(rng.choice(n_emb, size=n, replace=False))
+    else:
+        pos = np.arange(n)
+    offs = sorted({int(o) for o in rng.choice(np.arange(-7, 8), size=4,
+                                              replace=False) if o != 0})
+    inv = {int(e): i for i, e in enumerate(pos)}
+    J = np.zeros((n, n), np.float32)
+    for o in offs:
+        for i in range(n):
+            j = inv.get(int(pos[i]) + o)
+            if j is not None and rng.uniform() < 0.8:
+                J[i, j] = rng.normal()
+    D = max(1, max(np.count_nonzero(J[i]) for i in range(n)))
+    col = np.zeros((n, D), np.int32)
+    w = np.zeros((n, D), np.float32)
+    for i in range(n):
+        nz = np.flatnonzero(J[i])
+        col[i, : len(nz)] = nz
+        w[i, : len(nz)] = J[i, nz]
+    p = pos if use_pos else None
+    got, want = dia.ell_to_dia(col, w, pos=p), ref_dia.ell_to_dia(col, w, pos=p)
+    assert got is not None and got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    offsets, wdia, pos_out = got
+    x = rng.normal(size=(3, n)).astype(np.float32)
+    diag = rng.uniform(1, 2, n).astype(np.float32)
+    y = dia.dia_matvec(torch.from_numpy(x), torch.from_numpy(diag), offsets,
+                       torch.from_numpy(wdia),
+                       None if pos_out is None else torch.from_numpy(pos_out))
+    ref = x.astype(np.float64) * diag + x.astype(np.float64) @ J.T
+    np.testing.assert_allclose(y.numpy(), ref, rtol=1e-4, atol=1e-4)

@@ -15,11 +15,19 @@ Phases (any failure raises and the script exits non-zero):
    bench grid at 1,024 chains, through the wrapper the main path calls:
    one trajectory with given momenta, then the in-kernel Philox momenta's
    statistics; the inertness of gap lanes on embedded rows;
-5. the slice end to end — ``compile_graph`` → ``hmc.run_hmc(collect=
-   "moments")`` — on the 10×10 grid (65,536 chains) and the 128×128 grid
-   (1,024 chains), held to exact numpy/scipy oracles built from the port's
-   own information form, with the kernels' launch counters reset just
-   before and read just after.
+5. K3 (NUTS trajectory) against its plain version (the lockstep loop) on
+   the same momenta and uniforms table, at the bench shape (n = 82,
+   65,536 chains, max_depth 4), at max_depth 8 and at n = 3,246, then its
+   in-kernel uniforms; K4 (SMC weight pipeline) against its plain version
+   at N ∈ {7, 1000, 65,536};
+6. the three paths end to end, each with every kernel's launch counter
+   reset just before and read just after: ``hmc.run_hmc`` on the 10×10
+   grid (65,536 chains) and the 128×128 grid (1,024 chains);
+   ``nuts.run_nuts`` on the 10×10 grid (65,536 chains); ``smc.sample`` on
+   ``kalman_lds(T=20)`` (65,536 particles, fixed and adaptive schedules)
+   and the 10×10 grid. Each is held to exact numpy/scipy oracles built
+   from the port's own information form, and the bench's throughputs are
+   printed.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -262,10 +270,301 @@ def phase_k2(dev, rows=128, C=1024):
     return dict(max_abs_err=abs_x, ms=ms, plain_ms=plain_ms)
 
 
+def posterior_draws(J, h, C, gen):
+    """C exact draws of N(J⁻¹h, J⁻¹) on the card (f64 Cholesky)."""
+    import torch
+
+    Jd = J.double()
+    mode = torch.linalg.solve(Jd, h.double())
+    L = torch.linalg.cholesky(torch.linalg.inv(Jd))
+    z = torch.randn((C, J.shape[0]), generator=gen, device=J.device,
+                    dtype=torch.float64)
+    return (mode[None] + z @ L.T).float().contiguous()
+
+
+def phase_k3(dev, cases=((10, 65536, 4), (10, 8192, 8), (64, 1024, 4))):
+    """K3 against the lockstep loop on the same momenta and uniforms
+    table, at the shapes the main path gives it."""
+    import dataclasses
+
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import nuts
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+    from lhvi_tpu_torch.ops import nuts_traj as nt
+
+    tol_q, tol_acc82, min_agree = 1e-4, 2e-5, 0.999
+    log(f"[K3] a chain agrees with the plain version when depth, n_leaf and "
+        f"divergence are equal and q_prop is within {tol_q}*max(1,|plain|) "
+        f"(a flipped multinomial choice moves q_prop by O(1)); >= "
+        f"{min_agree:.1%} of chains must agree with the plain version in f32 "
+        f"and in f64 (each decision is a threshold test on sums the versions "
+        f"take in other orders); on chains agreeing with the f64 run, the "
+        f"accept statistic within {tol_acc82}*sqrt(n/82): the kernel forms "
+        f"and sums its energies in double, so what remains is its f32 "
+        f"trajectory's rounding, a sum over n coordinates")
+    record = None
+    for rows, C, D in cases:
+        g, _ = gaussian_grid(rows, rows, seed=0, evidence_frac=0.2)
+        fg = compile_graph(g, dev)
+        n = fg.n_cont
+        tol_acc = tol_acc82 * max(1.0, (n / 82) ** 0.5)
+        gen = torch.Generator(dev).manual_seed(rows + D)
+        xc = posterior_draws(fg.quad_J, fg.quad_h, C, gen)
+        im = torch.ones(n, device=dev)  # the bench's adapt_mass=False
+        eps = torch.full((), 0.12, device=dev)
+        U = torch.rand((3, 1 << D, C), generator=gen, device=dev)
+        gen.manual_seed(1234)
+        p0 = torch.randn((C, n), generator=gen, device=dev)
+        kern = nt._cuda_nuts_traj(xc, p0, fg.quad_J, fg.quad_h, im, eps, D,
+                                  uniforms=U)
+        plain = nuts._nuts_lockstep(fg, None, xc, None, eps, im, D,
+                                    uniforms=U, p0=p0)
+        fg64 = dataclasses.replace(fg, quad_J=fg.quad_J.double(),
+                                   quad_h=fg.quad_h.double(),
+                                   quad_c=fg.quad_c.double())
+        plain64 = nuts._nuts_lockstep(fg64, None, xc.double(), None,
+                                      eps.double(), im.double(), D,
+                                      uniforms=U, p0=p0.double())
+        # the main path's call: p0 is the generator's first draw
+        gen.manual_seed(1234)
+        wrap = nt.nuts_trajectory(fg, gen, xc, eps, im, D, uniforms=U)
+        torch.cuda.synchronize()
+
+        def acc_of(r):
+            return r[1].double() / torch.clamp(r[2], min=1).double()
+
+        def agrees(ref):
+            d = (kern[0].double() - ref[0].double()).abs()
+            close = (d <= tol_q * torch.clamp(ref[0].double().abs(), min=1.0)
+                     ).all(dim=1)
+            return (close & (kern[2] == ref[2]) & (kern[3] == ref[3])
+                    & (kern[4] == ref[4]))
+
+        agree, agree64 = agrees(plain), agrees(plain64)
+        q_abs = float((kern[0] - plain[0]).abs()[agree].max())
+        q_rel = rel_err(kern[0][agree], plain[0][agree])
+        acc32 = float((acc_of(kern) - acc_of(plain)).abs()[agree].max())
+        acc64 = float((acc_of(kern) - acc_of(plain64)).abs()[agree64].max())
+        wrap_ok = (torch.equal(wrap[0], kern[0])
+                   and torch.equal(wrap[2], kern[3])
+                   and torch.equal(wrap[3], kern[4]))
+        ms = time_ms(lambda: nt._cuda_nuts_traj(
+            xc, p0, fg.quad_J, fg.quad_h, im, eps, D, uniforms=U))
+        plain_ms = time_ms(lambda: nuts._nuts_lockstep(
+            fg, None, xc, None, eps, im, D, uniforms=U, p0=p0))
+        log(f"[K3] {rows}x{rows} grid n={n} C={C} max_depth={D}: "
+            f"{int((~agree).sum())} chains disagree with plain f32, "
+            f"{int((~agree64).sum())} with plain f64; q_prop max abs err "
+            f"{q_abs:.3e}, max rel err {q_rel:.3e}; accept stat max err "
+            f"{acc32:.3e} vs f32, {acc64:.3e} vs f64; mean depth "
+            f"{float(kern[3].float().mean()):.4f} (plain "
+            f"{float(plain[3].float().mean()):.4f}), mean leaves "
+            f"{float(kern[2].float().mean()):.4f}, divergent "
+            f"{int(kern[4].sum())}; wrapper equals launcher: {wrap_ok}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        frac = float(agree.float().mean())
+        if (frac < min_agree or float(agree64.float().mean()) < min_agree
+                or q_rel > tol_q or acc64 > tol_acc or not wrap_ok
+                or not torch.isfinite(kern[0]).all()):
+            raise AssertionError(f"K3 disagrees with its plain version at "
+                                 f"n={n}, C={C}, max_depth={D}")
+        if record is None:  # the first case is the bench's shape
+            record = dict(max_abs_err=q_abs, ms=ms, plain_ms=plain_ms)
+
+    # in-kernel Philox uniforms through the wrapper
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg = compile_graph(g, dev)
+    xc = posterior_draws(fg.quad_J, fg.quad_h, 8192, gen)
+    im = torch.ones(fg.n_cont, device=dev)
+    gen.manual_seed(77)
+    a = nt.nuts_trajectory(fg, gen, xc, 0.12, im, 4)
+    b = nt.nuts_trajectory(fg, gen, xc, 0.12, im, 4)
+    gen.manual_seed(77)
+    c = nt.nuts_trajectory(fg, gen, xc, 0.12, im, 4)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(a, c))
+    fresh = not torch.equal(a[0], b[0])
+    log(f"[K3] in-kernel uniforms: same generator state bitwise equal: "
+        f"{same}; next call differs: {fresh}; mean accept stat "
+        f"{float(a[1].mean()):.4f}, mean depth {float(a[2].float().mean()):.4f}")
+    if not (same and fresh):
+        raise AssertionError("K3's in-kernel uniforms do not follow the generator")
+    return record
+
+
+def phase_k4(dev, sizes=(7, 1000, 65536), scales=(3.0, 30.0)):
+    import torch
+
+    from lhvi_tpu_torch.ops import resample as rs
+
+    log("[K4] tolerances (tests/test_resample_kernel.py:26-32): cum 1e-4 "
+        "absolute; lwn and step_z 1e-5*max(1,|plain|) (at scale 30 |lwn| "
+        "reaches ~250, where one f32 ulp is 1.5e-5, so 1e-5 can hold only "
+        "relatively); ess 1e-5 relative; |cum[-1] - 1| < 1e-4")
+    record = None
+    for N in sizes:
+        for scale in scales:
+            gen = torch.Generator(dev).manual_seed(N)
+            lw = scale * torch.randn((N,), generator=gen, device=dev)
+            lwn, cum, z, ess = rs.weight_pipeline(lw)
+            lwn_p, cum_p, z_p, ess_p = rs._torch_weight_pipeline(lw)
+            torch.cuda.synchronize()
+            errs = (rel_err(lwn, lwn_p),
+                    float((cum - cum_p).abs().max()),
+                    abs(float(z - z_p)) / max(1.0, abs(float(z_p))),
+                    abs(float(ess / ess_p) - 1.0), abs(float(cum[-1]) - 1.0))
+            abs_err = max(float((lwn - lwn_p).abs().max()), errs[1],
+                          abs(float(z - z_p)))
+            log(f"[K4] N={N} scale {scale}: lwn rel err {errs[0]:.3e} (abs "
+                f"{float((lwn - lwn_p).abs().max()):.3e}), cum err "
+                f"{errs[1]:.3e}, step_z rel err {errs[2]:.3e}, ess rel err "
+                f"{errs[3]:.3e}, |cum[-1]-1| {errs[4]:.3e}, ess "
+                f"{float(ess):.6g}")
+            if (errs[0] > 1e-5 or errs[1] > 1e-4 or errs[2] > 1e-5
+                    or errs[3] > 1e-5 or errs[4] > 1e-4):
+                raise AssertionError(f"K4 disagrees with its plain version "
+                                     f"at N={N}")
+            if N == 65536 and scale == scales[0]:
+                ms = time_ms(lambda: rs.weight_pipeline(lw))
+                plain_ms = time_ms(lambda: rs._torch_weight_pipeline(lw))
+                log(f"[K4] N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return record
+
+
+def timed_runs(run, reps=3):
+    """Median host-clock seconds of ``run(seed)`` over ``reps`` runs after a
+    warm run, each ending in a device read (bench.py's method)."""
+    import torch
+
+    run(100)
+    times = []
+    for rep in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(101 + rep)
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    return dt, (max(times) - min(times)) / dt
+
+
+def phase_nuts(dev, smi, C=65536):
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import nuts
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg = compile_graph(g, dev)
+    J = fg.meta.np_global["quad_J"].astype(np.float64)
+    h = fg.meta.np_global["quad_h"].astype(np.float64)
+    mean_x, var_x = np.linalg.solve(J, h), np.diag(np.linalg.inv(J))
+    cfg = nuts.NUTSConfig(max_depth=4, init_step_size=0.12)
+    moments, _, diag = nuts.run_nuts(
+        fg, torch.Generator(dev).manual_seed(0), cfg, n_chains=C,
+        n_warmup=200, n_samples=200, collect="moments")
+    div = float(diag["divergence_rate"])
+    log(f"[nuts] 10x10 grid, {C} chains: mean depth "
+        f"{float(diag['mean_depth']):.4f}, divergence rate {div:.3e}")
+    check_moments("nuts 10x10", moments, diag, mean_x, np.arange(fg.n_cont),
+                  var_x)
+    if not div < 0.01:
+        raise AssertionError(f"NUTS divergence rate {div}")
+    # bench.py:173-191
+    bcfg = nuts.NUTSConfig(max_depth=4, init_step_size=0.12, adapt_mass=False)
+    S = 50
+
+    def run(seed):
+        m, _, _ = nuts.run_nuts(fg, torch.Generator(dev).manual_seed(seed),
+                                bcfg, n_chains=C, n_warmup=0, n_samples=S,
+                                collect="moments", stream_diag=False)
+        float(m["mean"][0])
+
+    dt, spread = timed_runs(run)
+    rate = C * S / dt
+    log(f"[nuts] throughput: {rate:.6g} chain-samples/s (rep spread "
+        f"{spread:.3f}) on {smi}")
+    return rate
+
+
+def exact_gaussian(fg):
+    """(log Z, mean, var) of a pure-Gaussian compiled graph from the port's
+    own information form: ½hᵀJ⁻¹h + ½(n log 2π − log|J|) + c."""
+    import math
+
+    import numpy as np
+
+    J = fg.meta.np_global["quad_J"].astype(np.float64)
+    h = fg.meta.np_global["quad_h"].astype(np.float64)
+    sign, logdet = np.linalg.slogdet(J)
+    assert sign > 0
+    mean = np.linalg.solve(J, h)
+    log_z = (0.5 * h @ mean + 0.5 * (J.shape[0] * math.log(2 * math.pi)
+                                     - logdet) + float(fg.quad_c))
+    return log_z, mean, np.diag(np.linalg.inv(J))
+
+
+def phase_smc(dev, smi, N=65536):
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import smc
+    from lhvi_tpu_torch.models.lds import kalman_lds
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+
+    g, xs, _ = kalman_lds(T=20, seed=0)
+    fg = compile_graph(g, dev)
+    log_z, mean, var = exact_gaussian(fg)
+    idx = [fg.meta.loc(rv)[1] for rv in xs]
+    for adaptive in (False, True):
+        cfg = smc.SMCConfig(n_particles=N, n_temps=50, n_moves=2,
+                            adaptive=adaptive)
+        t0 = time.perf_counter()
+        res = smc.sample(fg, torch.Generator(dev).manual_seed(0), cfg)
+        dt = time.perf_counter() - t0
+        errs = np.array([abs(res.mean(rv) - mean[i]) for rv, i in
+                         zip(xs, idx)])
+        vrel = np.array([abs(res.var(rv) - var[i]) / var[i] for rv, i in
+                         zip(xs, idx)])
+        lz_err = abs(res.log_z - log_z)
+        name = "adaptive" if adaptive else "fixed"
+        log(f"[smc] kalman_lds(T=20) {name} schedule, {N} particles: log Z "
+            f"{res.log_z:.5f} (exact {log_z:.5f}, err {lz_err:.4f}), "
+            f"temperatures {int(res.diag['n_temps_used'])}, mean accept "
+            f"{float(res.diag['accept'].mean()):.4f}, mean err mean "
+            f"{errs.mean():.4f} max {errs.max():.4f}, var rel err mean "
+            f"{vrel.mean():.4f}; {dt:.2f} s")
+        if not (lz_err < 0.1 and errs.mean() < 0.1 and errs.max() < 0.3
+                and vrel.mean() < 0.3):
+            raise AssertionError(f"SMC ({name}) off the exact Kalman answer")
+    # bench.py:194-212
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg = compile_graph(g, dev)
+    log_z, _, _ = exact_gaussian(fg)
+    cfg = smc.SMCConfig(n_particles=N, n_temps=50)
+    lz = []
+
+    def run(seed):
+        out = smc.run_smc(fg, torch.Generator(dev).manual_seed(seed), cfg)
+        lz.append(float(out[3]))
+
+    dt, spread = timed_runs(run)
+    rate = N * cfg.n_temps / dt
+    log(f"[smc] throughput (10x10 grid): {rate:.6g} particle-temperature-"
+        f"steps/s (rep spread {spread:.3f}) on {smi}; log Z "
+        f"{lz[-1]:.4f} against the closed form {log_z:.4f} (err "
+        f"{abs(lz[-1] - log_z):.4f})")
+    return rate
+
+
 def run_and_time(hmc, fg, cfg, dev, n_chains, n_samples):
     """Bench-style throughput: a sampling-only moments run (no warmup, no
-    streamed diagnostics), median of 3 after a warm run, host clock around
-    work ending in a synchronize."""
+    streamed diagnostics) → (chain-samples/s, rep spread)."""
     import torch
 
     def run(seed):
@@ -275,15 +574,8 @@ def run_and_time(hmc, fg, cfg, dev, n_chains, n_samples):
                                     collect="moments", stream_diag=False)
         float(moments["mean"][0])
 
-    run(100)
-    times = []
-    for rep in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(101 + rep)
-        times.append(time.perf_counter() - t0)
-    dt = statistics.median(times)
-    return n_chains * n_samples / dt, (max(times) - min(times)) / dt
+    dt, spread = timed_runs(run)
+    return n_chains * n_samples / dt, spread
 
 
 def phase_slice(dev, smi, rows=128, chains=(65536, 1024)):
@@ -373,6 +665,8 @@ def main() -> int:
     from lhvi_tpu_torch.ops import _build
     from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
     from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
+    from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
+    from lhvi_tpu_torch.ops.resample import weight_pipeline
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -389,17 +683,33 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("[build] " + line.strip())
 
+    t0 = time.perf_counter()
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
+    k3 = phase_k3(dev)
+    k4 = phase_k4(dev)
+    log(f"[time] kernel phases {time.perf_counter() - t0:.1f} s")
 
-    quad_leapfrog.launches = 0
-    dia_hmc_proposal.launches = 0
-    phase_slice(dev, smi)
-    launches = {"quad_leapfrog": quad_leapfrog.launches,
-                "dia_proposal": dia_hmc_proposal.launches}
-    log(f"[slice] kernel launches on the main path: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    counters = {"quad_leapfrog": quad_leapfrog, "dia_proposal": dia_hmc_proposal,
+                "nuts_traj": nuts_trajectory, "weights": weight_pipeline}
+    launches = {}
+    # each path: every count set to 0 just before it, read just after
+    for path, fn, kernels in (
+            ("hmc", lambda: phase_slice(dev, smi),
+             ("quad_leapfrog", "dia_proposal")),
+            ("nuts", lambda: phase_nuts(dev, smi), ("nuts_traj",)),
+            ("smc", lambda: phase_smc(dev, smi), ("weights",))):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        fn()
+        seen = {k: c.launches for k, c in counters.items()}
+        log(f"[{path}] kernel launches on the path: {seen}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        for k in kernels:
+            if seen[k] <= 0:
+                raise AssertionError(f"{k} never ran on the {path} path")
+            launches[k] = seen[k]
 
     kernels = [
         {"name": "quad_leapfrog", "route": "cuda",
@@ -410,6 +720,14 @@ def main() -> int:
          "source": "lhvi_tpu_torch/ops/csrc/dia_proposal.cu",
          "replaces": "lhvi_tpu/ops/dia.py:354",
          "launches": launches["dia_proposal"], **k2},
+        {"name": "nuts_traj", "route": "cuda",
+         "source": "lhvi_tpu_torch/ops/csrc/nuts_traj.cu",
+         "replaces": "lhvi_tpu/ops/nuts_traj.py:48",
+         "launches": launches["nuts_traj"], **k3},
+        {"name": "weights", "route": "cuda",
+         "source": "lhvi_tpu_torch/ops/csrc/weights.cu",
+         "replaces": "lhvi_tpu/ops/resample.py:48",
+         "launches": launches["weights"], **k4},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -406,11 +406,11 @@ def run_hmc(
     state = run_warmup(fg, cfg, state, n_warmup, trans)
 
     def sample_step(state):
-        acc_sum = 0.0
+        # as the reference's fori_loop carry: the block reports the LAST
+        # transition's mean acceptance (reference hmc.py:900-910)
         for _ in range(thin):
             state, acc = trans(state, False)
-            acc_sum = acc_sum + torch.mean(acc)
-        return state, acc_sum / thin
+        return state, torch.mean(acc)
 
     acc_total = torch.zeros((), device=dev)
     if collect == "moments":

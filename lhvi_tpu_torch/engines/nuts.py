@@ -1,0 +1,440 @@
+"""No-U-Turn Sampler (iterative, multinomial) for compiled factor graphs
+(PyTorch port of ``lhvi_tpu/engines/nuts.py``).
+
+The recursive tree doubling is an iterative state machine over a shared
+leaf schedule: depth d = 0, 1, …; leaf j = 0 … 2^d−1 within each doubling;
+global leaf counter ``step = 2^d − 1 + j``. Even leaves are checkpointed at
+slot popcount(j); odd leaf j is checked for a U-turn against the boundaries
+j+1−2^l, l = 1..ctz(j+1). Proposals are multinomial (streaming logsumexp
+weights) with biased progressive sampling at merges; a leaf whose energy
+error exceeds 1000 diverges.
+
+On dense pure-quadratic targets every transition is ONE launch of kernel
+K3 (``ops.nuts_traj``), in which each chain stops at its own depth. The
+lockstep loop ``_nuts_lockstep`` — every chain advances through the same
+leaves behind masks, one batched gradient per leaf — is K3's plain version
+and the path for sparse targets, as in the reference.
+
+Same contract as ``hmc.run_hmc`` (``collect="moments"|"samples"``,
+``thin``, ``stream_diag``). Not in this slice (each raises
+``NotImplementedError`` naming its slice): discrete latents, non-quadratic
+targets, the mode-swap move and chain sharding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from lhvi_tpu_torch.engines import hmc as _hmc
+from lhvi_tpu_torch.fg.compile import CompiledFG
+
+_DIVERGENCE = 1000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class NUTSConfig:
+    max_depth: int = 8
+    init_step_size: float = 0.1
+    target_accept: float = 0.8
+    gibbs_sweeps: int = 1
+    gibbs_max_colors: int = 0
+    adapt_mass: bool = True
+    jitter: float = 1.0
+    gibbs_unroll: int = 1
+    # fused trajectory kernel (K3) on dense pure-quadratic targets; False
+    # keeps the lockstep loop (the reference's ``pallas`` flag)
+    traj_kernel: bool = True
+    # orbit-level mode-swap MH move after the Gibbs stage
+    mode_swap: bool = False
+    mode_swap_every: int = 1
+
+    def to_hmc(self) -> _hmc.HMCConfig:
+        """The HMCConfig sharing this config's warmup/Gibbs fields — the
+        single mapping point (init and warmup route through it)."""
+        return _hmc.HMCConfig(
+            init_step_size=self.init_step_size,
+            target_accept=self.target_accept,
+            gibbs_sweeps=self.gibbs_sweeps,
+            gibbs_max_colors=self.gibbs_max_colors,
+            adapt_mass=self.adapt_mass,
+            jitter=self.jitter,
+            gibbs_unroll=self.gibbs_unroll,
+            mode_swap=self.mode_swap,
+            mode_swap_every=self.mode_swap_every,
+        )
+
+
+def _check_supported(fg: CompiledFG, cfg: NUTSConfig):
+    if fg.n_disc > 0:
+        raise NotImplementedError(
+            f"discrete latents (n_disc={fg.n_disc}): chromatic Gibbs "
+            + _hmc._SLICE2)
+    if fg.n_cont and not fg.cont_pure_quad:
+        raise NotImplementedError(
+            "NUTS on non-quadratic targets (autograd over "
+            "log_prob_cont_batched) " + _hmc._SLICE2)
+    if cfg.mode_swap:
+        raise NotImplementedError(
+            "mode_swap arrives with Slice 7, the pod flagship "
+            "(ROADMAP Queue 1 item 9)")
+
+
+def _popcount(n):
+    """Set bits of a Python int or of each element of an integer tensor
+    (as the reference, on the low 32 bits)."""
+    if isinstance(n, int):
+        return bin(n & 0xFFFFFFFF).count("1")
+    u = n.to(torch.int64) & 0xFFFFFFFF
+    c = torch.zeros_like(u)
+    for b in range(32):
+        c = c + ((u >> b) & 1)
+    return c.to(torch.int32)
+
+
+def _ctz(n):
+    """Count trailing zeros (n > 0; 32 at n = 0, as the reference)."""
+    u = n & 0xFFFFFFFF if isinstance(n, int) else n.to(torch.int64) & 0xFFFFFFFF
+    return _popcount(((u & -u) - 1) & 0xFFFFFFFF)
+
+
+def _make_grad_lp(fg: CompiledFG, xd):
+    """Batched (grad, logp) closure: [C, n] → ([C, n], [C]).
+
+    Pure-quadratic continuous energy: one product serves both
+    (``g = h − qJ`` and ``lp = c + ½ q·(h + g)``); sparse targets use the
+    ELL matvec. The non-quadratic branch (autograd at the chains' discrete
+    states) arrives with Slice 2.
+    """
+    if not fg.cont_pure_quad:
+        raise NotImplementedError(
+            "the non-quadratic NUTS gradient " + _hmc._SLICE2)
+    h, c = fg.quad_h, fg.quad_c
+    if fg.quad_sparse:
+        def grad_lp(q):
+            g = h[None, :] - fg.quad_matvec_batched(q)
+            lp = c + 0.5 * torch.sum(q * (h[None, :] + g), dim=-1)
+            return g, lp
+
+        return grad_lp
+    J = fg.quad_J
+
+    def grad_lp(q):
+        g = h[None, :] - q @ J
+        lp = c + 0.5 * torch.sum(q * (h[None, :] + g), dim=-1)
+        return g, lp
+
+    return grad_lp
+
+
+def _uturn_batched(dq, p_a, p_b, inv_mass):
+    """Generalized U-turn test, batched over chains: [C, n] → [C] bool."""
+    im = inv_mass[None, :]
+    return (torch.sum(dq * im * p_a, dim=-1) < 0.0) | (
+        torch.sum(dq * im * p_b, dim=-1) < 0.0)
+
+
+class _NUTS:
+    """Batched trajectory state of the lockstep loop ([C]-shaped unless
+    noted); the reference's NamedTuple, updated in place."""
+
+    def __init__(self, xc, p0, g0, h0, max_depth: int):
+        C, n = xc.shape
+        dev, dt = xc.device, xc.dtype
+        self.q_l, self.p_l, self.g_l = xc, p0, g0
+        self.q_r, self.p_r, self.g_r = xc, p0, g0
+        self.q, self.p, self.g = xc, p0, g0
+        self.q_prop, self.sub_q_prop = xc, xc
+        self.h0 = h0
+        self.log_w = torch.zeros((C,), dtype=dt, device=dev)
+        self.sub_log_w = torch.full((C,), -math.inf, dtype=dt, device=dev)
+        self.sum_acc = torch.zeros((C,), dtype=dt, device=dev)
+        self.n_leaf = torch.zeros((C,), dtype=torch.int32, device=dev)
+        self.dir = torch.ones((C,), dtype=dt, device=dev)  # ±1.0 per chain
+        self.done = torch.zeros((C,), dtype=torch.bool, device=dev)
+        self.sub_bad = torch.zeros((C,), dtype=torch.bool, device=dev)
+        self.diverged = torch.zeros((C,), dtype=torch.bool, device=dev)
+        self.depth_c = torch.zeros((C,), dtype=torch.int32, device=dev)
+        # [max_depth+1, C, n] checkpoint stacks
+        self.q_ck = torch.zeros((max_depth + 1, C, n), dtype=dt, device=dev)
+        self.p_ck = torch.zeros((max_depth + 1, C, n), dtype=dt, device=dev)
+
+
+def _nuts_lockstep(fg: CompiledFG, gen, xc, xd, eps, inv_mass,
+                   max_depth: int, uniforms=None, p0=None):
+    """One NUTS transition for ALL chains in lockstep (the plain version of
+    K3). Returns ``(q_prop, sum_acc, n_leaf, depth, diverged)``.
+
+    ``p0`` defaults to ``std·N(0, 1)`` drawn from ``gen``. ``uniforms``
+    ([3, 2^max_depth, C]) replaces the uniform draws: the direction draw of
+    depth d reads step 2^d − 1 of row 0, a leaf reads its own step of row 1
+    and a merge the step after the subtree's last leaf of row 2 (the
+    reference's ``fold_in`` steps); the direction is forward where
+    ``u < 0.5``. Otherwise each is one fresh ``torch.rand`` from ``gen``.
+
+    The loop stops when every chain is done: it reads ``any(~done)`` back
+    to the host once per doubling, so on CUDA tensors this path syncs at
+    most ``max_depth`` times per transition (K3 does not).
+    """
+    C, n = xc.shape
+    dev = xc.device
+    grad_lp = _make_grad_lp(fg, xd)
+    if p0 is None:
+        from lhvi_tpu_torch.ops.nuts_traj import momentum_std
+
+        p0 = momentum_std(inv_mass)[None, :] * torch.randn(
+            (C, n), generator=gen, device=dev)
+    if uniforms is not None:
+        from lhvi_tpu_torch.ops.nuts_traj import _check_uniforms
+
+        _check_uniforms(uniforms, max_depth, C, dev)
+
+    def draw(kind: int, step: int):
+        if uniforms is not None:
+            return uniforms[kind, step]
+        return torch.rand((C,), generator=gen, device=dev)
+
+    im = inv_mass[None, :]
+    neg_inf = torch.full((), -math.inf, device=dev)
+    g0, lp0 = grad_lp(xc)
+    s = _NUTS(xc, p0, g0, -lp0 + 0.5 * torch.sum(im * p0 * p0, dim=-1),
+              max_depth)
+
+    for d in range(max_depth):
+        if not bool(torch.any(~s.done)):
+            break
+        # --- start of subtree: per-chain directions, move to that end ----
+        fwd = draw(0, (1 << d) - 1) < 0.5
+        go = ~s.done
+        s.dir = torch.where(go, torch.where(fwd, 1.0, -1.0), s.dir)
+        gm = go[:, None]
+        fm = fwd[:, None]
+        s.sub_q_prop = s.q
+        s.q = torch.where(gm, torch.where(fm, s.q_r, s.q_l), s.q)
+        s.p = torch.where(gm, torch.where(fm, s.p_r, s.p_l), s.p)
+        s.g = torch.where(gm, torch.where(fm, s.g_r, s.g_l), s.g)
+        s.sub_log_w = torch.full((C,), -math.inf, dtype=xc.dtype, device=dev)
+        s.sub_bad = torch.zeros((C,), dtype=torch.bool, device=dev)
+
+        for j in range(1 << d):
+            step = (1 << d) - 1 + j
+            # --- one leapfrog leaf for every active chain ----------------
+            active = ~s.done & ~s.sub_bad
+            e = (s.dir * eps)[:, None]
+            p_half = s.p + 0.5 * e * s.g
+            q_new = s.q + e * im * p_half
+            g_new, lp_new = grad_lp(q_new)
+            p_new = p_half + 0.5 * e * g_new
+            hh = -lp_new + 0.5 * torch.sum(im * p_new * p_new, dim=-1)
+            dh = hh - s.h0
+            div = ~torch.isfinite(dh) | (dh > _DIVERGENCE)
+            lw = torch.where(div, neg_inf, -dh)
+            acc_term = torch.where(torch.isfinite(dh),
+                                   torch.clamp(torch.exp(-dh), max=1.0),
+                                   torch.zeros((), device=dev))
+            u = draw(1, step)
+            s.sub_log_w = torch.logaddexp(s.sub_log_w,
+                                          torch.where(active, lw, neg_inf))
+            take = active & (torch.log(u) < (lw - s.sub_log_w)) & ~div
+            s.sub_q_prop = torch.where(take[:, None], q_new, s.sub_q_prop)
+            am = active[:, None]
+            s.q = torch.where(am, q_new, s.q)
+            s.p = torch.where(am, p_new, s.p)
+            s.g = torch.where(am, g_new, s.g)
+            turned = torch.zeros((C,), dtype=torch.bool, device=dev)
+            if j % 2 == 0:  # checkpoint even leaves at slot popcount(j)
+                slot = _popcount(j)
+                s.q_ck[slot] = torch.where(am, q_new, s.q_ck[slot])
+                s.p_ck[slot] = torch.where(am, p_new, s.p_ck[slot])
+            else:  # odd leaves: U-turn against the stored boundaries
+                dr = s.dir[:, None]
+                for l in range(_ctz(j + 1)):
+                    sl = _popcount(j + 1 - (1 << (l + 1)))
+                    dq = (q_new - s.q_ck[sl]) * dr
+                    turned = turned | (active & _uturn_batched(
+                        dq, s.p_ck[sl] * dr, p_new * dr, inv_mass))
+            s.sub_bad = s.sub_bad | (active & (div | turned))
+            s.sum_acc = s.sum_acc + torch.where(active, acc_term,
+                                                torch.zeros((), device=dev))
+            s.n_leaf = s.n_leaf + active.to(torch.int32)
+            s.diverged = s.diverged | (active & div)
+
+        # --- merge the completed subtree (biased progressive sampling) ---
+        going = ~s.done
+        ok1 = going & ~s.sub_bad
+        um = draw(2, (2 << d) - 1)
+        take_new = ok1 & (torch.log(um) < (s.sub_log_w - s.log_w))
+        s.q_prop = torch.where(take_new[:, None], s.sub_q_prop, s.q_prop)
+        s.log_w = torch.where(ok1, torch.logaddexp(s.log_w, s.sub_log_w),
+                              s.log_w)
+        ok = ok1[:, None]
+        fwd_m = s.dir[:, None] > 0
+        s.q_l = torch.where(ok & ~fwd_m, s.q, s.q_l)
+        s.p_l = torch.where(ok & ~fwd_m, s.p, s.p_l)
+        s.g_l = torch.where(ok & ~fwd_m, s.g, s.g_l)
+        s.q_r = torch.where(ok & fwd_m, s.q, s.q_r)
+        s.p_r = torch.where(ok & fwd_m, s.p, s.p_r)
+        s.g_r = torch.where(ok & fwd_m, s.g, s.g_r)
+        turn_glob = _uturn_batched(s.q_r - s.q_l, s.p_l, s.p_r, inv_mass)
+        s.done = s.done | s.sub_bad | (going & turn_glob)
+        s.depth_c = torch.where(going, torch.full((), d + 1, dtype=torch.int32,
+                                                  device=dev), s.depth_c)
+    return s.q_prop, s.sum_acc, s.n_leaf, s.depth_c, s.diverged
+
+
+def _nuts_sweep_batched(fg: CompiledFG, gen, xc, xd, eps, inv_mass,
+                        max_depth: int, traj_kernel: bool = True,
+                        uniforms=None):
+    """One NUTS transition for ALL chains →
+    ``(xc', accept_stat [C], depth [C], diverged [C])``.
+
+    Dense pure-quadratic targets route through the fused trajectory
+    (``ops.nuts_traj.nuts_trajectory``: K3 on CUDA tensors) when
+    ``traj_kernel`` is set; everything else takes the lockstep loop, as in
+    the reference. ``uniforms`` (see :func:`_nuts_lockstep`) fixes the
+    tree's uniforms on either route.
+    """
+    if traj_kernel and fg.cont_pure_quad and not fg.quad_sparse:
+        from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
+
+        return nuts_trajectory(fg, gen, xc, eps, inv_mass, max_depth,
+                               uniforms=uniforms)
+    q_prop, sum_acc, n_leaf, depth, div = _nuts_lockstep(
+        fg, gen, xc, xd, eps, inv_mass, max_depth, uniforms=uniforms)
+    accept = sum_acc / torch.clamp(n_leaf, min=1).to(torch.float32)
+    return q_prop, accept, depth, div
+
+
+def nuts_transition(fg: CompiledFG, cfg: NUTSConfig, state: _hmc.HMCState,
+                    gen, adapt: bool):
+    """One NUTS-within-Gibbs transition for all chains. Returns
+    ``(state, (acc [C], depth [C], div [C]))``."""
+    hcfg = cfg.to_hmc()
+    xd = _hmc.sweep_all(fg, hcfg, gen, state.xc, state.xd)
+    if fg.n_cont == 0:
+        C = state.xc.shape[0]
+        dev = state.xc.device
+        return state._replace(xd=xd), (
+            torch.ones((C,), device=dev),
+            torch.zeros((C,), dtype=torch.int32, device=dev),
+            torch.zeros((C,), dtype=torch.bool, device=dev))
+    eps = torch.exp(state.log_eps)
+    xc, acc, depth, div = _nuts_sweep_batched(
+        fg, gen, state.xc, xd, eps, state.inv_mass, cfg.max_depth,
+        traj_kernel=cfg.traj_kernel)
+    state = state._replace(xc=xc, xd=xd)
+    if adapt:
+        state = _hmc._da_update(state, torch.mean(acc), hcfg)
+        state = _hmc._welford_update(state, xc)
+    return state, (acc, depth, div)
+
+
+def run_nuts(
+    fg: CompiledFG,
+    gen: torch.Generator,
+    cfg: NUTSConfig = NUTSConfig(),
+    n_chains: int = 8,
+    n_warmup: int = 500,
+    n_samples: int = 1000,
+    thin: int = 1,
+    collect: str = "samples",
+    stream_diag: bool = True,
+):
+    """NUTS over the compiled graph; the contract of ``hmc.run_hmc``.
+
+    collect="samples": ``(samples_xc [S, C, n_cont], samples_xd, diag)``;
+    collect="moments": ``(moments, None, diag)`` with the streamed
+    split-R̂/ESS when ``stream_diag``. Each emitted sample reports the LAST
+    transition of its ``thin`` block (acceptance, depth, divergence), as
+    the reference's ``fori_loop`` carry does.
+    """
+    if collect not in ("samples", "moments"):
+        raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
+    _check_supported(fg, cfg)
+    dev = fg.device
+    hcfg = cfg.to_hmc()
+    state = _hmc.init_hmc_state(fg, gen, hcfg, n_chains)
+
+    def transition(s, adapt):
+        return nuts_transition(fg, cfg, s, gen, adapt)
+
+    state = _hmc.run_warmup(fg, hcfg, state, n_warmup,
+                            lambda s, adapt: (transition(s, adapt)[0], None))
+
+    def sample_step(state):
+        for _ in range(thin):
+            state, stats = transition(state, False)
+        acc, depth, div = stats
+        return state, (torch.mean(acc), torch.mean(depth.to(torch.float32)),
+                       torch.mean(div.to(torch.float32)))
+
+    tot = [torch.zeros((), device=dev) for _ in range(3)]
+
+    def add(stats):
+        for i, v in enumerate(stats):
+            tot[i] = tot[i] + v
+
+    def base_diag(state):
+        S = max(n_samples, 1)
+        return {
+            "accept_rate": tot[0] / S,
+            "mean_depth": tot[1] / S,
+            "divergence_rate": tot[2] / S,
+            "step_size": torch.exp(state.log_eps),
+            "inv_mass": state.inv_mass,
+        }
+
+    if collect == "moments":
+        half = n_samples // 2
+        bm_len, n_batches = _hmc._bm_schedule(n_samples)
+        s1 = torch.zeros(fg.n_cont, device=dev)
+        s2 = torch.zeros(fg.n_cont, device=dev)
+        sd = (_hmc._stream_diag_init(n_chains, fg.n_cont, dev)
+              if stream_diag else None)
+        for t in range(n_samples):
+            state, stats = sample_step(state)
+            add(stats)
+            xc = state.xc
+            s1 = s1 + torch.sum(xc, dim=0)
+            s2 = s2 + torch.sum(xc * xc, dim=0)
+            if stream_diag:
+                sd = _hmc._stream_diag_update(sd, t, xc, half, bm_len,
+                                              n_batches)
+        n_obs = n_samples * n_chains
+        mean = s1 / n_obs
+        moments = {
+            "mean": mean,
+            "var": torch.clamp(s2 / n_obs - mean**2, min=0.0),
+            "disc_probs": torch.zeros((max(fg.n_disc, 1), fg.max_v),
+                                      device=dev),
+            "n_obs": n_obs,
+        }
+        diag = base_diag(state)
+        if stream_diag:
+            diag.update(_hmc._stream_diag_finalize(sd, n_samples, bm_len))
+        return moments, None, diag
+
+    s_xc, s_xd = [], []
+    for _ in range(n_samples):
+        state, stats = sample_step(state)
+        add(stats)
+        s_xc.append(state.xc)
+        s_xd.append(state.xd)
+    diag = base_diag(state)
+    if not s_xc:
+        return (torch.zeros((0, n_chains, fg.n_cont), device=dev),
+                torch.zeros((0, n_chains, fg.n_disc), dtype=torch.int64,
+                            device=dev), diag)
+    return torch.stack(s_xc), torch.stack(s_xd), diag
+
+
+def sample(fg: CompiledFG, gen, **kw):
+    """Convenience wrapper: run and wrap results for RV-level queries."""
+    cfg = kw.pop("cfg", NUTSConfig())
+    if kw.get("collect") == "moments":
+        moments, _, diag = run_nuts(fg, gen, cfg, **kw)
+        return _hmc.HMCMoments(fg, moments, diag)
+    s_xc, s_xd, diag = run_nuts(fg, gen, cfg, **kw)
+    return _hmc.HMCResult(fg, s_xc, s_xd, diag)

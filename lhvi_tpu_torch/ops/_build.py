@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, loaded with
-``ctypes``. The library lives in ``ops/_build/`` under a name keyed by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing is downloaded; a missing ``nvcc`` or a
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
+loaded with ``ctypes``. The library lives in ``ops/_build/`` under a name
+keyed by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one is reused. Nothing is downloaded; a missing ``nvcc`` or a
 failed build raises with the compiler's output.
 
 Each exported C function launches one kernel on the stream it is given
@@ -24,7 +25,7 @@ from pathlib import Path
 _CSRC = Path(__file__).parent / "csrc"
 _BUILD = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_log = ""  # nvcc's output (ptxas register/shared-memory report)
@@ -39,6 +40,15 @@ _SIGNATURES = {
     # C, n_emb, K, offsets (host int[K]), n_steps, seed, offset, stream
     "lhvi_dia_proposal": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _P, _I, _U64, _U64, _P),
+    # q0, p0, J, h, inv_mass, eps, uniforms (or null), q_prop, sum_acc,
+    # n_leaf, depth, diverged, scratch (or null), C, n, max_depth, seed,
+    # offset, stream
+    "lhvi_nuts_traj": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _U64, _U64, _P),
+    # C, n, max_depth -> floats of global scratch lhvi_nuts_traj needs
+    "lhvi_nuts_traj_scratch": (_I, _I, _I),
+    # log_w, lw_norm, cum, stats (step_z, ess), N, stream
+    "lhvi_weight_pipeline": (_P, _P, _P, _P, _I, _P),
 }
 
 
@@ -70,13 +80,27 @@ def library_path() -> Path:
     if out.exists():
         return out
     _BUILD.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [_BUILD / f"{tag}.{s.stem}.o" for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    tmp = out.with_name(f"{tag}.tmp")
+    if not failed:
+        r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                           capture_output=True, text=True)
+        build_log += r.stdout + r.stderr
+        failed = [r.returncode] if r.returncode != 0 else []
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

@@ -1,6 +1,6 @@
-"""Carry the reference's compiled tables and sampler state into the port.
+"""Carry the reference's compiled tables and sampler states into the port.
 
-Both functions take plain numpy arrays (read off the JAX objects with
+These functions take plain numpy arrays (read off the JAX objects with
 ``np.asarray``), so this module imports nothing of JAX: with them, both
 packages compute the same thing from the same numbers.
 """
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from lhvi_tpu_torch.engines.hmc import HMCState
+from lhvi_tpu_torch.engines.smc import SMCState
 from lhvi_tpu_torch.fg.compile import CompiledFG, _tensor
 
 QUAD_TABLES = ("quad_J", "quad_h", "quad_c", "quad_diag", "quad_ell_col",
@@ -90,3 +91,22 @@ def hmc_state_from_numpy(state_dict: dict, device) -> HMCState:
             a = a.astype(np.float32)
         out[k] = _tensor(a, device)
     return HMCState(**out)
+
+
+def smc_state_from_numpy(state_dict: dict, device) -> SMCState:
+    """The port's ``SMCState`` from a reference SMC state's fields (e.g.
+    ``{k: np.asarray(v) for k, v in state._asdict().items()}``): particles
+    ``xc``/``xd``, log-weights ``log_w`` and ``log_z``. The reference's JAX
+    key has no counterpart (the port draws from a ``torch.Generator``) and
+    is not read. Floats become f32 and integers int64."""
+    missing = [k for k in SMCState._fields if k not in state_dict]
+    if missing:
+        raise KeyError(f"smc_state_from_numpy: missing fields {missing}")
+    device = torch.device(device)
+    out = {}
+    for k in SMCState._fields:
+        a = np.asarray(state_dict[k])
+        if np.issubdtype(a.dtype, np.floating):
+            a = a.astype(np.float32)
+        out[k] = _tensor(a, device)
+    return SMCState(**out)

@@ -179,3 +179,154 @@ def test_dia_runs_on_one_generator_draw_fresh_momenta(dev, grid32):
     both = moved[0] & moved[1]
     assert bool(both.any())
     assert not torch.equal(runs[0][both], runs[1][both])
+
+
+# ---- K3: the NUTS trajectory ----------------------------------------------
+
+
+def _nuts_case(dev, n, C, D, seed):
+    """A random SPD target, states near its mode, momenta and a uniforms
+    table, all on the card."""
+    g = torch.Generator(dev).manual_seed(seed)
+    A = torch.randn((n, n), generator=g, device=dev) / n**0.5
+    J = (A @ A.T + torch.eye(n, device=dev)).contiguous()
+    h = torch.randn((n,), generator=g, device=dev)
+    mode = torch.linalg.solve(J.double(), h.double()).float()
+    q0 = mode[None] + 0.5 * torch.randn((C, n), generator=g, device=dev)
+    im = 0.5 + torch.rand((n,), generator=g, device=dev)
+    p0 = torch.randn((C, n), generator=g, device=dev) / torch.sqrt(im)
+    U = torch.rand((3, 1 << D, C), generator=g, device=dev)
+    return J, h, q0, p0, im, U
+
+
+@pytest.mark.parametrize("n,C,D", [(5, 70, 6), (82, 300, 4), (82, 64, 9),
+                                   (300, 33, 4), (1100, 9, 3)])
+def test_nuts_traj_kernel_matches_plain(dev, n, C, D):
+    """Both layouts (warp per chain up to n = 256, block per chain past
+    it) against the lockstep loop in f64 on the same p0 and uniforms
+    table: on ≥ 97% of chains depth, leaf count and divergence are equal
+    and q_prop is within 1e-4·max(1,|plain|) (each decision, the
+    multinomial choices included, is a threshold test on sums taken in
+    another order); on those chains the summed accept statistic is within
+    1e-4 per leaf."""
+    import dataclasses
+
+    from lhvi_tpu_torch.engines import nuts
+    from lhvi_tpu_torch.ops import nuts_traj as nt
+
+    J, h, q0, p0, im, U = _nuts_case(dev, n, C, D, n + C)
+    eps = torch.full((), 0.9 / n**0.25, device=dev)
+    before = nt.nuts_trajectory.launches
+    got = nt._cuda_nuts_traj(q0, p0, J, h, im, eps, D, uniforms=U)
+    torch.cuda.synchronize()
+    assert nt.nuts_trajectory.launches == before + 1
+    fg = dataclasses.replace(
+        lt.compile_graph(gaussian_grid(2, 2, seed=0, evidence_frac=0.0)[0],
+                         dev),
+        n_cont=n, quad_J=J.double(), quad_h=h.double(),
+        quad_c=torch.zeros((), dtype=torch.float64, device=dev))
+    want = nuts._nuts_lockstep(fg, None, q0.double(), None, eps.double(),
+                               im.double(), D, uniforms=U, p0=p0.double())
+    close = ((got[0].double() - want[0]).abs()
+             <= 1e-4 * torch.clamp(want[0].abs(), min=1.0)).all(dim=1)
+    agree = (close & (got[2] == want[2]) & (got[3] == want[3])
+             & (got[4] == want[4]))
+    assert float(agree.float().mean()) >= 0.97
+    tol = 1e-4 * got[2][agree].double()
+    assert torch.all((got[1][agree].double() - want[1][agree]).abs() <= tol)
+    assert int(got[3].min()) >= 1 and int(got[3].max()) <= D
+
+
+def test_nuts_traj_kernel_in_kernel_uniforms(dev):
+    """Philox uniforms through the wrapper: the same generator state gives
+    the same bits, the next call on the generator differs; the accept
+    statistic is a probability and depths lie in 1..max_depth."""
+    from lhvi_tpu_torch.ops import nuts_traj as nt
+
+    g, _ = gaussian_grid(6, 6, seed=0, evidence_frac=0.2)
+    fg = lt.compile_graph(g, dev)
+    C, n, D = 512, fg.n_cont, 6
+    xc = torch.zeros((C, n), device=dev)
+    im = torch.ones(n, device=dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    a = nt.nuts_trajectory(fg, gen, xc, 0.2, im, D)
+    b = nt.nuts_trajectory(fg, gen, xc, 0.2, im, D)
+    gen.manual_seed(3)
+    c = nt.nuts_trajectory(fg, gen, xc, 0.2, im, D)
+    torch.cuda.synchronize()
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[0], b[0])
+    assert bool(((a[1] >= 0) & (a[1] <= 1)).all())
+    assert int(a[2].min()) >= 1 and int(a[2].max()) <= D
+
+
+# ---- K4: the SMC weight pipeline --------------------------------------------
+
+
+@pytest.mark.parametrize("N", [1, 7, 1000, 65536, 100003])
+@pytest.mark.parametrize("scale", [3.0, 30.0])
+def test_weight_pipeline_kernel_matches_plain(dev, N, scale):
+    """tests/test_resample_kernel.py:26-32 tolerances against the plain
+    version in f64, relative where f32 cannot hold them absolutely: lwn and
+    step_z within 1e-5·max(1,|value|) (at scale 30 |lwn| reaches ~260,
+    where one f32 ulp is 3e-5)."""
+    from lhvi_tpu_torch.ops import resample as rs
+
+    g = torch.Generator(dev).manual_seed(N)
+    lw = scale * torch.randn((N,), generator=g, device=dev)
+    before = rs.weight_pipeline.launches
+    lwn, cum, z, ess = rs.weight_pipeline(lw)
+    torch.cuda.synchronize()
+    assert rs.weight_pipeline.launches == before + 1
+    lwn_p, cum_p, z_p, ess_p = rs._torch_weight_pipeline(lw.double())
+    assert _rel(lwn, lwn_p) < 1e-5
+    assert float((cum - cum_p).abs().max()) < 1e-4
+    assert abs(float(z) - float(z_p)) < 1e-5 * max(1.0, abs(float(z_p)))
+    assert abs(float(ess) / float(ess_p) - 1) < 1e-5
+    assert abs(float(cum[-1]) - 1) < 1e-4
+    assert z.shape == () and z.device == lw.device
+
+
+def test_nuts_and_smc_steps_never_sync_with_the_host(dev):
+    """A NUTS transition on the K3 path and a fixed-schedule SMC
+    temperature (reweight, K4, resample, two moves) read nothing back."""
+    from lhvi_tpu_torch.engines import hmc, nuts, smc
+    from lhvi_tpu_torch.models.lds import kalman_lds
+    from lhvi_tpu_torch.ops import nuts_traj as nt
+    from lhvi_tpu_torch.ops import resample as rs
+
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg = lt.compile_graph(g, dev)
+    cfg = nuts.NUTSConfig(max_depth=4, init_step_size=0.12)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = hmc.init_hmc_state(fg, gen, cfg.to_hmc(), 256)
+    g2, _, _ = kalman_lds(T=20, seed=0)
+    fg2 = lt.compile_graph(g2, dev)
+    scfg = smc.SMCConfig(n_particles=4096, n_temps=50)
+    N = scfg.n_particles
+    mid = 0.5 * (fg2.cont_lo + fg2.cont_hi)
+    st = smc.SMCState(mid + 2.0 * torch.randn((N, fg2.n_cont), generator=gen,
+                                              device=dev),
+                      torch.zeros((N, 0), dtype=torch.int64, device=dev),
+                      torch.full((N,), -float(np.log(N)), device=dev),
+                      torch.zeros((), device=dev))
+    betas = torch.linspace(0.0, 1.0, 51, device=dev)
+    launches = nt.nuts_trajectory.launches + rs.weight_pipeline.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, _ = nuts.nuts_transition(fg, cfg, state, gen, True)
+        for t in range(2):
+            u0 = torch.rand((), generator=gen, device=dev)
+            st, ess = smc._reweight_resample(fg2, scfg, st, betas[t],
+                                             betas[t + 1], u0)
+            xc, acc = smc._rejuvenate(fg2, scfg, gen, st.xc, st.xd,
+                                      betas[t + 1], scfg.step_size)
+            st = st._replace(xc=xc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (nt.nuts_trajectory.launches + rs.weight_pipeline.launches
+            == launches + 4)
+    assert torch.isfinite(state.xc).all() and torch.isfinite(st.xc).all()

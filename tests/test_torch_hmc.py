@@ -261,6 +261,33 @@ def test_samples_mode_and_thin():
     assert res.map(rv) == res.mean(rv) and res.var(rv) >= 0
 
 
+def test_accept_rate_under_thin_keeps_the_last_transition():
+    """Under ``thin`` the reference reports each block's LAST transition's
+    mean acceptance (its fori_loop carry, lhvi_tpu/engines/hmc.py:900-910).
+    Replaying run_hmc's transitions by hand on an identically seeded
+    generator gives exactly that mean, which differs from the mean over
+    all transitions."""
+    g, _ = toy.gaussian_grid(4, 4, seed=1, evidence_frac=0.2)
+    fg = lt.compile_graph(g, "cpu")
+    cfg = hmc.HMCConfig(n_leapfrog=4, init_step_size=0.4)
+    C, W, S, thin = 16, 0, 5, 3
+    _, _, diag = hmc.run_hmc(fg, torch.Generator().manual_seed(7), cfg,
+                             n_chains=C, n_warmup=W, n_samples=S, thin=thin,
+                             collect="moments")
+    gen = torch.Generator().manual_seed(7)
+    state = hmc.init_hmc_state(fg, gen, cfg, C)
+    state = hmc.run_warmup(
+        fg, cfg, state, W, lambda s, a: hmc.hmc_transition(fg, cfg, s, gen, a))
+    accs = np.zeros((S, thin))
+    for t in range(S):
+        for i in range(thin):
+            state, acc = hmc.hmc_transition(fg, cfg, state, gen, False)
+            accs[t, i] = float(torch.mean(acc))
+    last = accs[:, -1].mean()
+    assert float(diag["accept_rate"]) == pytest.approx(last, rel=1e-6)
+    assert abs(accs.mean() - last) > 1e-3
+
+
 def test_out_of_slice_paths_raise():
     g, _ = toy.hybrid_chain()
     fg = lt.compile_graph(g, "cpu")

@@ -1,0 +1,236 @@
+"""The port's NUTS engine held to the JAX reference and to exact oracles.
+
+Deterministic pieces (bit counts, the U-turn test, the gradient closures,
+one lockstep transition given its uniforms) are fed the same numpy inputs
+in both packages or checked for their invariances. The sampler as a whole
+draws from torch generators, which cannot reproduce JAX's streams, so its
+moments are held to exact Gaussian answers at the thresholds of the
+reference's own tests, and one transition's depth and acceptance
+statistics are compared between the packages from the same states.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import lhvi_tpu.models.toy as ref_toy  # noqa: E402
+from lhvi_tpu import compile_graph as ref_compile  # noqa: E402
+from lhvi_tpu.engines import nuts as ref_nuts  # noqa: E402
+
+import lhvi_tpu_torch as lt  # noqa: E402
+import lhvi_tpu_torch.models.toy as toy  # noqa: E402
+from lhvi_tpu_torch import Domain, F, Graph, RV  # noqa: E402
+from lhvi_tpu_torch.engines import hmc, nuts  # noqa: E402
+from lhvi_tpu_torch.ops import nuts_traj  # noqa: E402
+from lhvi_tpu_torch.potentials import GaussianPotential  # noqa: E402
+
+
+def _corr_gaussian():
+    dom = Domain([-20, 20], continuous=True)
+    a, b = RV(dom, name="a"), RV(dom, name="b")
+    g = Graph([a, b], [F(GaussianPotential([1.0, -2.0],
+                                           [[1.0, 0.8], [0.8, 2.0]]), [a, b])])
+    return lt.compile_graph(g, "cpu"), a, b
+
+
+def test_popcount_ctz_match_reference():
+    v = np.arange(0, 2**10 + 1, dtype=np.int32)
+    want_pc = np.asarray(ref_nuts._popcount(jnp.asarray(v)))
+    want_ctz = np.asarray(ref_nuts._ctz(jnp.asarray(v)))
+    t = torch.from_numpy(v)
+    np.testing.assert_array_equal(nuts._popcount(t).numpy(), want_pc)
+    np.testing.assert_array_equal(nuts._ctz(t).numpy(), want_ctz)
+    assert [nuts._popcount(int(i)) for i in v] == list(want_pc)
+    assert [nuts._ctz(int(i)) for i in v] == list(want_ctz)
+
+
+def test_uturn_matches_reference():
+    rng = np.random.default_rng(0)
+    C, n = 512, 9
+    dq, pa, pb = (rng.normal(size=(C, n)).astype(np.float32) for _ in range(3))
+    im = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    want = np.asarray(ref_nuts._uturn_batched(*map(jnp.asarray,
+                                                   (dq, pa, pb, im))))
+    got = nuts._uturn_batched(*map(torch.from_numpy, (dq, pa, pb, im)))
+    assert 0 < want.mean() < 1
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("quad_max_n", [4096, 8])
+def test_grad_lp_matches_reference(quad_max_n):
+    """Dense (one product) and ELL (sparse matvec) gradient closures: the
+    same q gives the same (g, lp) within 1e-6 of the values' scale."""
+    g_ref, _ = ref_toy.gaussian_grid(6, 6, seed=3, evidence_frac=0.2)
+    g, _ = toy.gaussian_grid(6, 6, seed=3, evidence_frac=0.2)
+    rfg = ref_compile(g_ref, quad_max_n=quad_max_n)
+    fg = lt.compile_graph(g, "cpu", quad_max_n=quad_max_n)
+    assert fg.quad_sparse == (quad_max_n == 8) == bool(rfg.quad_sparse)
+    q = (3.0 * np.random.default_rng(1).normal(size=(64, fg.n_cont))
+         ).astype(np.float32)
+    gr, lpr = ref_nuts._make_grad_lp(rfg, None)(jnp.asarray(q))
+    gp, lpp = nuts._make_grad_lp(fg, None)(torch.from_numpy(q))
+    gr, lpr = np.asarray(gr), np.asarray(lpr)
+    np.testing.assert_allclose(gp.numpy(), gr, rtol=1e-6,
+                               atol=1e-6 * np.abs(gr).max())
+    np.testing.assert_allclose(lpp.numpy(), lpr, rtol=1e-6,
+                               atol=1e-6 * np.abs(lpr).max())
+
+
+def test_lockstep_uniform_table_is_deterministic_and_chainwise():
+    """With a given uniforms table (and momenta) the plain version is a
+    function of its inputs; permuting the chains together with the
+    table's chain columns permutes the results the same way, because no
+    chain's tree depends on another's."""
+    g, _ = toy.gaussian_grid(4, 4, seed=1, evidence_frac=0.2)
+    fg = lt.compile_graph(g, "cpu")
+    C, n, D = 96, fg.n_cont, 5
+    rng = np.random.default_rng(2)
+    xc = torch.from_numpy(rng.normal(size=(C, n)).astype(np.float32))
+    p0 = torch.from_numpy(rng.normal(size=(C, n)).astype(np.float32))
+    U = torch.from_numpy(rng.uniform(size=(3, 2**D, C)).astype(np.float32))
+    im = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    eps = torch.tensor(0.6)
+    a = nuts._nuts_lockstep(fg, None, xc, None, eps, im, D, uniforms=U, p0=p0)
+    b = nuts._nuts_lockstep(fg, None, xc, None, eps, im, D, uniforms=U, p0=p0)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    depth = a[3].numpy()
+    assert len(np.unique(depth)) > 1  # trees stop at different depths
+    perm = torch.from_numpy(rng.permutation(C))
+    c = nuts._nuts_lockstep(fg, None, xc[perm], None, eps, im, D,
+                            uniforms=U[:, :, perm].contiguous(), p0=p0[perm])
+    for x, y in zip(a, c):
+        np.testing.assert_allclose(x[perm].numpy(), y.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    for x, y in zip(a[2:], c[2:]):  # n_leaf, depth, diverged: exact
+        assert torch.equal(x[perm], y)
+
+
+def test_trajectory_routes_to_the_plain_version_on_cpu():
+    """``nuts_trajectory`` on CPU tensors is the lockstep loop (no kernel
+    launch), with p0 the first draw of the generator."""
+    fg, _, _ = _corr_gaussian()
+    C, D = 64, 4
+    xc = torch.zeros((C, 2))
+    im = torch.tensor([1.0, 0.5])
+    U = torch.rand((3, 2**D, C), generator=torch.Generator().manual_seed(9))
+    before = nuts_traj.nuts_trajectory.launches
+    a = nuts_traj.nuts_trajectory(fg, torch.Generator().manual_seed(4), xc,
+                                  0.3, im, D, uniforms=U)
+    gen = torch.Generator().manual_seed(4)
+    p0 = nuts_traj.momentum_std(im)[None] * torch.randn((C, 2), generator=gen)
+    q, sa, nl, d, dv = nuts._nuts_lockstep(fg, None, xc, None, 0.3, im, D,
+                                           uniforms=U, p0=p0)
+    assert nuts_traj.nuts_trajectory.launches == before
+    assert torch.equal(a[0], q) and torch.equal(a[2], d)
+    assert torch.equal(a[1], sa / torch.clamp(nl, min=1).float())
+
+
+def test_nuts_correlated_gaussian():
+    """tests/test_nuts_map.py:14-29 thresholds."""
+    fg, a, b = _corr_gaussian()
+    res = nuts.sample(fg, torch.Generator().manual_seed(0), n_chains=16,
+                      n_warmup=300, n_samples=600)
+    assert res.diag["divergence_rate"] < 0.02
+    assert res.diag["mean_depth"] >= 1.0
+    assert abs(res.mean(a) - 1.0) < 0.08
+    assert abs(res.mean(b) + 2.0) < 0.12
+    assert abs(res.var(a) - 1.0) < 0.15
+    assert abs(res.var(b) - 2.0) / 2.0 < 0.15
+
+
+def test_nuts_moments_and_thin():
+    """tests/test_nuts_map.py:72-88: collect="moments" with thin=2."""
+    fg, a, b = _corr_gaussian()
+    res = nuts.sample(fg, torch.Generator().manual_seed(2), n_chains=32,
+                      n_warmup=300, n_samples=400, collect="moments", thin=2)
+    assert abs(res.mean(a) - 1.0) < 0.1
+    assert abs(res.mean(b) + 2.0) < 0.15
+    assert abs(res.var(a) - 1.0) < 0.2
+    assert res.diag["divergence_rate"] < 0.02
+    assert np.isfinite(res.diag["rhat"]).all()
+
+
+def test_nuts_grid_matches_dense_solve():
+    """A 5×5 evidence grid: moments against the dense solve of the port's
+    own (J, h) (tests/test_hmc.py:60-79 thresholds)."""
+    g, _ = toy.gaussian_grid(5, 5, seed=4, evidence_frac=0.2)
+    fg = lt.compile_graph(g, "cpu")
+    J = fg.meta.np_global["quad_J"].astype(np.float64)
+    h = fg.meta.np_global["quad_h"].astype(np.float64)
+    mean, var = np.linalg.solve(J, h), np.diag(np.linalg.inv(J))
+    moments, _, diag = nuts.run_nuts(
+        fg, torch.Generator().manual_seed(3), nuts.NUTSConfig(max_depth=6),
+        n_chains=64, n_warmup=300, n_samples=400, collect="moments")
+    err = np.abs(moments["mean"].numpy() - mean).mean()
+    vrel = np.abs(moments["var"].numpy() / var - 1.0).mean()
+    assert err < 0.08, err
+    assert vrel < 0.2, vrel
+    assert float(diag["divergence_rate"]) < 0.01
+    assert 0.5 < float(diag["accept_rate"]) <= 1.0
+
+
+def test_one_transition_statistics_match_reference():
+    """One transition at a fixed step size from the same 2,048 starting
+    states: mean tree depth within 0.1 and mean acceptance statistic
+    within 0.02 of the reference's lockstep sweep (different momenta and
+    uniforms; both are exact draws of the same transition kernel)."""
+    g_ref, _ = ref_toy.gaussian_grid(5, 5, seed=4, evidence_frac=0.2)
+    g, _ = toy.gaussian_grid(5, 5, seed=4, evidence_frac=0.2)
+    rfg, fg = ref_compile(g_ref), lt.compile_graph(g, "cpu")
+    C, n, D = 2048, fg.n_cont, 6
+    J = np.asarray(rfg.quad_J, np.float64)
+    mode = np.linalg.solve(J, np.asarray(rfg.quad_h, np.float64))
+    rng = np.random.default_rng(5)
+    xc = (mode + rng.normal(size=(C, n)) @ np.linalg.cholesky(
+        np.linalg.inv(J)).T).astype(np.float32)
+    im = np.ones(n, np.float32)
+    eps = 0.35
+    _, acc_r, depth_r, div_r = ref_nuts._nuts_sweep_batched(
+        rfg, jax.random.PRNGKey(0), jnp.asarray(xc),
+        jnp.zeros((C, 0), jnp.int32), jnp.float32(eps), jnp.asarray(im), D,
+        use_pallas=False)
+    _, acc, depth, div = nuts._nuts_sweep_batched(
+        fg, torch.Generator().manual_seed(0), torch.from_numpy(xc), None,
+        torch.tensor(eps), torch.from_numpy(im), D)
+    dr, ar = float(np.mean(np.asarray(depth_r))), float(np.mean(acc_r))
+    d, a = float(depth.float().mean()), float(acc.mean())
+    assert abs(d - dr) < 0.1, (d, dr)
+    assert abs(a - ar) < 0.02, (a, ar)
+    assert not np.asarray(div_r).any() and not div.any()
+
+
+def test_out_of_slice_paths_raise():
+    g, _ = toy.hybrid_chain()
+    fg = lt.compile_graph(g, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match="Slice 2"):
+        nuts.run_nuts(fg, gen, n_chains=2, n_warmup=2, n_samples=2)
+    fg, _, _ = _corr_gaussian()
+    with pytest.raises(NotImplementedError, match="Slice 7"):
+        nuts.run_nuts(fg, gen, nuts.NUTSConfig(mode_swap=True), n_chains=2,
+                      n_warmup=2, n_samples=2)
+
+
+def test_samples_mode_and_config_mapping():
+    """collect="samples" returns [S, C, n] draws with the reference's
+    diagnostics; to_hmc carries the shared fields; the lockstep loop runs
+    on a dense target with the kernel switched off."""
+    fg, a, _ = _corr_gaussian()
+    cfg = nuts.NUTSConfig(max_depth=5, init_step_size=0.3, traj_kernel=False)
+    hc = cfg.to_hmc()
+    assert isinstance(hc, hmc.HMCConfig) and hc.init_step_size == 0.3
+    s_xc, s_xd, diag = nuts.run_nuts(fg, torch.Generator().manual_seed(1),
+                                     cfg, n_chains=4, n_warmup=10,
+                                     n_samples=5, thin=2)
+    assert s_xc.shape == (5, 4, 2) and s_xd.shape == (5, 4, 0)
+    assert set(diag) == {"accept_rate", "mean_depth", "divergence_rate",
+                         "step_size", "inv_mass"}
+    assert 1.0 <= float(diag["mean_depth"]) <= 5.0
+    res = hmc.HMCResult(fg, s_xc, s_xd, diag)
+    assert res.map(a) == res.mean(a)

@@ -19,15 +19,23 @@ Phases (any failure raises and the script exits non-zero):
    the same momenta and uniforms table, at the bench shape (n = 82,
    65,536 chains, max_depth 4), at max_depth 8 and at n = 3,246, then its
    in-kernel uniforms; K4 (SMC weight pipeline) against its plain version
-   at N ∈ {7, 1000, 65,536};
-6. the three paths end to end, each with every kernel's launch counter
+   at N ∈ {7, 1000, 65,536}; K5 (fused non-quadratic leapfrog) against
+   both plain versions (autograd, and the tape twin) on ``robot_map(100)``
+   (16,384 chains, 8 steps, untempered and at β = 0.3 against the SMC
+   base) and the 11×11 denoising grid (4,096 chains, 5 steps);
+6. the four paths end to end, each with every kernel's launch counter
    reset just before and read just after: ``hmc.run_hmc`` on the 10×10
    grid (65,536 chains) and the 128×128 grid (1,024 chains);
    ``nuts.run_nuts`` on the 10×10 grid (65,536 chains); ``smc.sample`` on
    ``kalman_lds(T=20)`` (65,536 particles, fixed and adaptive schedules)
-   and the 10×10 grid. Each is held to exact numpy/scipy oracles built
-   from the port's own information form, and the bench's throughputs are
-   printed.
+   and the 10×10 grid; and the robot path: HMC-within-Gibbs on
+   ``robot_map(100)`` (16,384 chains × 50 samples) with
+   ``fused_logpot=True`` (K5 on every proposal) and False, the two runs'
+   agreement, the small robot instance against exact enumeration
+   (65,536 chains), ``hybrid_chain``'s closed forms and SMC on the
+   denoising grid through K5. Each is held to exact answers (numpy/scipy
+   oracles, closed forms) or to its plain route, and the bench's
+   throughputs are printed.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. The script imports
@@ -434,6 +442,258 @@ def phase_k4(dev, sizes=(7, 1000, 65536), scales=(3.0, 30.0)):
     return record
 
 
+def robot_fg(dev, n_segments=100):
+    """bench.py's non-quadratic model: the robot-map HMLN on its
+    synthetic scan (``robot_scan_evidence(n, seed=0)``)."""
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.models.relational import robot_map, robot_scan_evidence
+    from lhvi_tpu_torch.relational.data import load_evidence
+
+    text, _ = robot_scan_evidence(n_segments, seed=0)
+    g, index = robot_map(n_segments, evidence=load_evidence(text)).ground()
+    return compile_graph(g, dev), index
+
+
+def denoise_fg(dev, rows=11):
+    """The largest square denoising grid the fused-kernel plan admits
+    (12×12 is over the reference's 8 MB footprint gate)."""
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.models.image import denoise_grid
+
+    return compile_graph(denoise_grid(rows, rows, seed=0)[0], dev)
+
+
+def phase_k5(dev, C_robot=16384, C_denoise=4096):
+    """K5 against both plain versions (autograd over
+    ``log_prob_cont_batched``, and the tape twin ``tape_energy_grad``) on
+    the same inputs and momenta, at the shapes the main path gives it."""
+    import torch
+
+    from lhvi_tpu_torch.ops import logpot
+
+    tol_x, tol_e = 1e-4, 2e-4
+    log(f"[K5] tolerances (tests/test_logpot_kernel.py:71-78's bound): x1, p1 "
+        f"within {tol_x}*max(1,|plain|); E0, E1 within {tol_e}*max(1,|plain|) "
+        f"(f32 trajectories; the kernel sums energies in double, the plain "
+        f"versions in f32 (autograd) and double (tape))")
+    fg_r, _ = robot_fg(dev)
+    fg_d = denoise_fg(dev)
+    cases = (("robot100", fg_r, C_robot, 8, 0.05, None),
+             ("robot100 tempered", fg_r, C_robot, 8, 0.05, 0.3),
+             ("denoise11x11", fg_d, C_denoise, 5, 0.03, None))
+    record = None
+    for name, fg, C, steps, eps, beta in cases:
+        plan = logpot.logpot_plan_cached(fg)
+        if plan is None:
+            raise AssertionError(f"{name}: no fused-kernel plan")
+        n = fg.n_cont
+        gen = torch.Generator(dev).manual_seed(C + steps)
+        lo, hi = fg.cont_lo, fg.cont_hi
+        x = lo + (hi - lo) * torch.rand((C, n), generator=gen, device=dev)
+        p = torch.randn((C, n), generator=gen, device=dev)
+        sizes = torch.as_tensor(fg.meta.np_global["disc_sizes"], device=dev)
+        xd = (torch.rand((C, fg.n_disc), generator=gen, device=dev)
+              * sizes[None]).long()
+        im = 0.5 + torch.rand((n,), generator=gen, device=dev)
+        kw = {}
+        if beta is not None:  # the SMC move's base measure
+            kw = dict(beta=torch.full((), beta, device=dev),
+                      base_mid=0.5 * (lo + hi),
+                      base_inv_s2=torch.full((n,), 1.0 / 2.0**2, device=dev))
+        args = (fg, x, p, xd, im, torch.full((), eps, device=dev), steps)
+        got = logpot.logpot_leapfrog(*args, plan=plan, **kw)
+        plains = {"autograd": logpot.logpot_leapfrog(*args, plan=None, **kw),
+                  "tape": logpot.tape_logpot_leapfrog(*args, plan=plan, **kw)}
+        torch.cuda.synchronize()
+        ok = all(bool(torch.isfinite(a).all()) for a in got)
+        msg, abs_err = [], 0.0
+        for pname, want in plains.items():
+            ex = max(rel_err(got[0], want[0]), rel_err(got[1], want[1]))
+            ee = max(rel_err(got[2], want[2]), rel_err(got[3], want[3]))
+            abs_err = max([abs_err] + [float((a - b).abs().max())
+                                       for a, b in zip(got, want)])
+            msg.append(f"vs {pname}: x1/p1 rel err {ex:.3e}, E0/E1 rel err "
+                       f"{ee:.3e}")
+            ok = ok and ex <= tol_x and ee <= tol_e
+        ms = time_ms(lambda: logpot.logpot_leapfrog(*args, plan=plan, **kw))
+        dv = plan.disc_values(xd)
+        use_base, b_, mid, is2 = logpot._tempering(
+            fg, dev, kw.get("beta"), kw.get("base_mid"), kw.get("base_inv_s2"))
+        kern_ms = time_ms(lambda: logpot._cuda_logpot_leapfrog(
+            plan, x, p, dv, im, args[5], b_, mid, is2, steps, use_base))
+        auto_ms = time_ms(lambda: logpot.logpot_leapfrog(*args, plan=None,
+                                                         **kw))
+        tape_ms = time_ms(lambda: logpot.tape_logpot_leapfrog(*args, plan=plan,
+                                                              **kw))
+        log(f"[K5] {name}: n={n} C={C} {steps} steps, {plan.n_rows} factor "
+            f"rows ({plan.n_active} with a latent slot), tapes "
+            f"{[len(b.tape) for b in plan.buckets]} nodes; " + "; ".join(msg)
+            + f"; max abs err {abs_err:.3e}; logpot_leapfrog {ms:.4f} ms "
+            f"(kernel alone {kern_ms:.4f} ms), plain autograd {auto_ms:.4f} "
+            f"ms, plain tape {tape_ms:.4f} ms")
+        if not ok:
+            raise AssertionError(f"K5 disagrees with its plain versions on "
+                                 f"{name}")
+        if record is None:  # the robot path's shape
+            record = dict(max_abs_err=abs_err, ms=ms, plain_ms=auto_ms)
+    return record
+
+
+def chain_spread(s_xc, s_xd, n_vals):
+    """Per-chain means of a samples-mode run → (mean, standard error) of
+    the continuous means [n_cont] and of the discrete marginals [n_disc,
+    n_vals], treating the chains as independent replicas."""
+    import torch
+
+    per = [s_xc.double().mean(0)]  # [C, n_cont]
+    per.append(torch.stack([(s_xd == v).double().mean(0)
+                            for v in range(n_vals)], -1))  # [C, n_disc, V]
+    C = s_xc.shape[1]
+    return [(a.mean(0), a.std(0) / C**0.5) for a in per]
+
+
+def phase_robot(dev, smi, C=16384, S=50, C_exact=65536, N_smc=16384):
+    """The non-quadratic HMC-within-Gibbs path: bench.py's robot-map run
+    fused (K5 on every proposal) and unfused, their agreement, the small
+    instance against exact enumeration, hybrid_chain's closed forms and
+    an SMC run through K5."""
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import hmc, smc
+    from lhvi_tpu_torch.models.relational import robot_map, robot_scan_evidence
+    from lhvi_tpu_torch.models.toy import hybrid_chain
+    from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
+    from lhvi_tpu_torch.relational.data import load_evidence
+    from lhvi_tpu_torch.utils.oracle import ExactPosterior
+
+    fg, _ = robot_fg(dev)
+    log(f"[robot] robot_map(100): {fg.n_cont} continuous, {fg.n_disc} "
+        f"discrete latents, {fg.n_colors} Gibbs colors")
+    rates = {}
+    for fused in (True, False):
+        cfg = hmc.HMCConfig(n_leapfrog=8, init_step_size=0.05,
+                            fused_logpot=fused)
+        before = logpot_leapfrog.launches
+        rate, spread = run_and_time(hmc, fg, cfg, dev, C, S)
+        k5 = logpot_leapfrog.launches - before
+        name = "fused" if fused else "unfused"
+        log(f"[robot] {name} (fused_logpot={fused}): {rate:.6g} "
+            f"chain-samples/s (rep spread {spread:.3f}), {C} chains x {S} "
+            f"samples, K5 launches {k5}, on {smi}")
+        # a warm run and three timed ones, one K5 launch per proposal
+        if k5 != (4 * S if fused else 0):
+            raise AssertionError(f"robot {name}: {k5} K5 launches")
+        rates[name] = rate
+
+    # fused against unfused: independent chains, the spread across them
+    W, SS = 200, 100
+    stats = {}
+    for fused in (True, False):
+        cfg = hmc.HMCConfig(n_leapfrog=8, init_step_size=0.05,
+                            fused_logpot=fused)
+        s_xc, s_xd, diag = hmc.run_hmc(
+            fg, torch.Generator(dev).manual_seed(5 + fused), cfg, n_chains=C,
+            n_warmup=W, n_samples=SS)
+        stats[fused] = chain_spread(s_xc, s_xd, fg.max_v)
+        log(f"[robot] fused_logpot={fused}: accept "
+            f"{float(diag['accept_rate']):.4f}, step "
+            f"{float(diag['step_size']):.4g}")
+        del s_xc, s_xd
+    floor = 1.0 / (C * SS)
+    worst = 0.0
+    for (mf, sf), (mu, su) in zip(stats[True], stats[False]):
+        z = (mf - mu).abs() / torch.clamp((sf**2 + su**2).sqrt(), min=floor)
+        worst = max(worst, float(z.max()))
+    log(f"[robot] fused vs unfused ({C} chains, {W} warmup + {SS} samples): "
+        f"largest difference {worst:.3f} standard errors over the "
+        f"{fg.n_cont} depth means and {fg.n_disc}x{fg.max_v} type marginals")
+    if worst > 5.0:
+        raise AssertionError("robot: fused and unfused runs disagree")
+
+    # the small instance against exact enumeration (tests/test_robot_map.py)
+    text, _ = robot_scan_evidence(5, seed=2, depth_miss_every=2,
+                                  n_type_labels=1)
+    g, index = robot_map(5, evidence=load_evidence(text)).ground()
+    exact = ExactPosterior(g, cont_grid=81)
+    fgs = compile_graph(g, dev)
+    before = logpot_leapfrog.launches
+    res = hmc.sample(fgs, torch.Generator(dev).manual_seed(0),
+                     cfg=hmc.HMCConfig(n_leapfrog=8, init_step_size=0.2,
+                                       gibbs_sweeps=2, fused_logpot=True),
+                     n_chains=C_exact, n_warmup=300, n_samples=600,
+                     collect="moments")
+    k5 = logpot_leapfrog.launches - before
+    errs = [0.0, 0.0, 0.0]
+    for i in range(5):
+        rv_t = index[("type", (f"s{i}",))]
+        if not rv_t.observed:
+            errs[0] = max(errs[0], float(np.abs(
+                res.disc_marginal(rv_t) - exact.disc_marginal(rv_t)).max()))
+        rv_d = index[("depth", (f"s{i}",))]
+        if not rv_d.observed:
+            errs[1] = max(errs[1], abs(res.mean(rv_d) - exact.mean(rv_d)))
+            errs[2] = max(errs[2], abs(res.var(rv_d) - exact.var(rv_d)))
+    log(f"[robot] small instance, {C_exact} chains, fused_logpot=True (K5 "
+        f"launches {k5}): type marginal err {errs[0]:.4f} (< 0.06), depth "
+        f"mean err {errs[1]:.4f} (< 0.08), var err {errs[2]:.4f} (< 0.1); "
+        f"rhat_disc max {float(np.max(res.diag['rhat_disc'])):.4f}")
+    if not (k5 > 0 and errs[0] < 0.06 and errs[1] < 0.08 and errs[2] < 0.1):
+        raise AssertionError("robot small instance off the exact posterior")
+
+    # hybrid_chain's closed forms: P(d) = (0.3, 0.7), E[x1] = 1/3,
+    # E[x2] = 4/15 (the switch's normalization is d-independent)
+    g, (d, x1, x2) = hybrid_chain()
+    fgh = compile_graph(g, dev)
+    before = logpot_leapfrog.launches
+    res = hmc.sample(fgh, torch.Generator(dev).manual_seed(1),
+                     cfg=hmc.HMCConfig(init_step_size=0.2, fused_logpot=True),
+                     n_chains=C, n_warmup=300, n_samples=400,
+                     collect="moments")
+    k5 = logpot_leapfrog.launches - before
+    pd = res.disc_marginal(d)
+    got = (float(pd[1]), res.mean(x1), res.mean(x2))
+    log(f"[robot] hybrid_chain, {C} chains, fused_logpot=True (K5 launches "
+        f"{k5}): P(d=1) {got[0]:.4f} (0.7), E[x1] {got[1]:.4f} (0.3333), "
+        f"E[x2] {got[2]:.4f} (0.2667)")
+    if not (k5 > 0 and abs(got[0] - 0.7) < 0.01 and abs(got[1] - 1 / 3) < 0.02
+            and abs(got[2] - 4 / 15) < 0.02):
+        raise AssertionError("hybrid_chain off its closed forms")
+
+    # SMC on the denoising grid through K5 against the autograd move (the
+    # adaptive schedule: a fixed one of 50 temperatures leaves log Z off by
+    # hundreds on this sharp posterior)
+    fgd = denoise_fg(dev)
+    lz = {}
+    for fused in (True, False):
+        before = logpot_leapfrog.launches
+        cfg = smc.SMCConfig(n_particles=N_smc, n_temps=400, adaptive=True,
+                            fused_logpot=fused)
+        t0 = time.perf_counter()
+        runs = [smc.sample(fgd, torch.Generator(dev).manual_seed(s), cfg)
+                for s in range(4)]
+        dt = time.perf_counter() - t0
+        lz[fused] = [r.log_z for r in runs]
+        temps = [int(r.diag["n_temps_used"]) for r in runs]
+        k5 = logpot_leapfrog.launches - before
+        log(f"[robot] smc denoise 11x11 (adaptive), {N_smc} particles, "
+            f"fused_logpot={fused}: log Z {[round(v, 4) for v in lz[fused]]}, "
+            f"temperatures {temps}, {N_smc * sum(temps) / dt:.6g} particle-"
+            f"temperature-steps/s, K5 launches {k5}")
+        if (k5 > 0) != fused:
+            raise AssertionError(f"smc fused_logpot={fused}: {k5} K5 launches")
+    mf, mu = np.mean(lz[True]), np.mean(lz[False])
+    se = np.sqrt((np.var(lz[True], ddof=1) + np.var(lz[False], ddof=1)) / 4)
+    paired = max(abs(a - b) for a, b in zip(lz[True], lz[False]))
+    log(f"[robot] smc log Z fused {mf:.4f} vs unfused {mu:.4f}: difference "
+        f"{abs(mf - mu):.4f}, 5 standard errors {5 * se:.4f}; largest "
+        f"difference on one seed {paired:.4f}")
+    if not abs(mf - mu) <= 5 * se + 1e-3:
+        raise AssertionError("smc: fused and unfused log Z disagree")
+    return rates
+
+
 def timed_runs(run, reps=3):
     """Median host-clock seconds of ``run(seed)`` over ``reps`` runs after a
     warm run, each ending in a device read (bench.py's method)."""
@@ -665,6 +925,7 @@ def main() -> int:
     from lhvi_tpu_torch.ops import _build
     from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
     from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
+    from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
     from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
     from lhvi_tpu_torch.ops.resample import weight_pipeline
 
@@ -688,17 +949,20 @@ def main() -> int:
     k2 = phase_k2(dev)
     k3 = phase_k3(dev)
     k4 = phase_k4(dev)
+    k5 = phase_k5(dev)
     log(f"[time] kernel phases {time.perf_counter() - t0:.1f} s")
 
     counters = {"quad_leapfrog": quad_leapfrog, "dia_proposal": dia_hmc_proposal,
-                "nuts_traj": nuts_trajectory, "weights": weight_pipeline}
+                "nuts_traj": nuts_trajectory, "weights": weight_pipeline,
+                "logpot_leapfrog": logpot_leapfrog}
     launches = {}
     # each path: every count set to 0 just before it, read just after
     for path, fn, kernels in (
             ("hmc", lambda: phase_slice(dev, smi),
              ("quad_leapfrog", "dia_proposal")),
             ("nuts", lambda: phase_nuts(dev, smi), ("nuts_traj",)),
-            ("smc", lambda: phase_smc(dev, smi), ("weights",))):
+            ("smc", lambda: phase_smc(dev, smi), ("weights",)),
+            ("robot", lambda: phase_robot(dev, smi), ("logpot_leapfrog",))):
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
@@ -728,6 +992,10 @@ def main() -> int:
          "source": "lhvi_tpu_torch/ops/csrc/weights.cu",
          "replaces": "lhvi_tpu/ops/resample.py:48",
          "launches": launches["weights"], **k4},
+        {"name": "logpot_leapfrog", "route": "cuda",
+         "source": "lhvi_tpu_torch/ops/csrc/logpot_leapfrog.cu",
+         "replaces": "lhvi_tpu/ops/logpot.py:271",
+         "launches": launches["logpot_leapfrog"], **k5},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

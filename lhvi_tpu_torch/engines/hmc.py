@@ -1,23 +1,33 @@
-"""HMC sampler for compiled factor graphs (PyTorch port of
-``lhvi_tpu/engines/hmc.py``, quadratic slice).
+"""HMC-within-Gibbs sampler for hybrid MRFs (PyTorch port of
+``lhvi_tpu/engines/hmc.py``).
 
-Continuous latents move by Hamiltonian Monte Carlo (leapfrog + Metropolis
-correction) with dual-averaging step-size adaptation and diagonal
-mass-matrix adaptation; chains are a leading tensor axis. On models whose
-continuous energy is entirely the fused quadratic form
-(``CompiledFG.cont_pure_quad``) every transition is one fused proposal,
-routed in the reference's order: banded DIA (kernel K2), then sparse ELL
-(torch ops), then dense (kernel K1).
+Each transition is a chromatic Gibbs sweep over the discrete latents, then
+one HMC proposal (leapfrog + Metropolis correction) for the continuous
+latents, with dual-averaging step-size adaptation and diagonal
+mass-matrix adaptation; chains are a leading tensor axis.
 
-The reference's ``lax.scan``/``fori_loop`` loops are Python loops here.
-Nothing in a transition reads a device value back: the step size
-``exp(log_eps)`` stays a 0-d device tensor that the kernels read through a
-pointer, and K2's per-proposal momentum stream is keyed on the host by
-the generator's seed and its Philox offset, which each proposal advances.
+- Gibbs: the compiler's per-color plan (``CompiledFG.color_plan``) gives
+  each color class exactly its adjacent factor rows; a sweep evaluates
+  them for all chains at once and draws every class's new values with one
+  Gumbel-max categorical (``gibbs_sweep_planned``). ``gibbs_max_colors >
+  0`` keeps the reference's rotated all-rows path (``gibbs_sweep``).
+- HMC on models whose continuous energy is entirely the fused quadratic
+  form (``CompiledFG.cont_pure_quad``): one fused proposal, routed in the
+  reference's order: banded DIA (kernel K2), sparse ELL (torch ops), dense
+  (kernel K1).
+- HMC on other (non-quadratic) targets: ``ops.logpot.logpot_leapfrog``,
+  by autograd over ``log_prob_cont_batched`` by default, or through the
+  fused log-potential kernel K5 with ``fused_logpot=True``.
 
-Not in this slice (each raises ``NotImplementedError`` naming its slice):
-discrete latents (chromatic Gibbs), the non-quadratic proposal, the
-mode-swap move and the fused log-potential kernel.
+The reference's ``lax.scan``/``fori_loop``/``vmap`` become Python loops
+over static colors and steps and a written-out chain axis. Nothing in a
+transition reads a device value back: the step size ``exp(log_eps)``
+stays a 0-d device tensor that the kernels read through a pointer, and
+K2's per-proposal momentum stream is keyed on the host by the generator's
+seed and its Philox offset, which each proposal advances.
+
+Not in this slice: the mode-swap move (raises ``NotImplementedError``
+naming its slice).
 """
 
 from __future__ import annotations
@@ -29,11 +39,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lhvi_tpu_torch.fg.compile import CompiledFG
+from lhvi_tpu_torch.fg.compile import _NEG_BIG, CompiledFG
 from lhvi_tpu_torch.ops.dia import _kinetic
 
-_SLICE2 = ("arrives with Slice 2, hybrid HMC-within-Gibbs "
-           "(ROADMAP Queue 1 item 4)")
+_SLICE2 = ("arrives with the rest of Slice 2: NUTS-within-Gibbs, "
+           "non-quadratic NUTS and tempered Gibbs (ROADMAP Queue 1 item 0)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +57,8 @@ class HMCConfig:
     jitter: float = 1.0
     # fused log-potential kernel for non-quadratic targets (K5)
     fused_logpot: bool = False
+    # the reference's lax.scan unroll factor of the planned sweep; a
+    # Python loop has no counterpart, so it is accepted and ignored
     gibbs_unroll: int = 1
     # banded (DIA) fused proposal (K2) on ELL targets whose offsets form a
     # small static set; False keeps the ELL gather·FMA path
@@ -70,30 +82,183 @@ class HMCState(NamedTuple):
 
 
 def _check_supported(fg: CompiledFG, cfg: HMCConfig):
-    if fg.n_disc > 0:
-        raise NotImplementedError(
-            f"discrete latents (n_disc={fg.n_disc}): chromatic Gibbs "
-            + _SLICE2)
-    if not fg.cont_pure_quad:
-        raise NotImplementedError(
-            "the non-quadratic HMC proposal (autograd over "
-            "log_prob_cont_batched) " + _SLICE2)
     if cfg.mode_swap:
         raise NotImplementedError(
             "mode_swap arrives with Slice 7, the pod flagship "
             "(ROADMAP Queue 1 item 9)")
-    if cfg.fused_logpot:
-        raise NotImplementedError(
-            "fused_logpot (kernel K5) arrives with Slice 8, the fused "
-            "non-quadratic path (ROADMAP Queue 1 item 10)")
+
+
+# ---- chromatic Gibbs over the discrete latents ---------------------------
+
+
+def categorical(gen, logits):
+    """One draw per row of ``logits [..., V]`` by Gumbel-max (the
+    reference's ``jax.random.categorical``; uniforms floored at the
+    smallest normal f32, as its ``gumbel``)."""
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def state_values(fg: CompiledFG, xd):
+    """Discrete index state ``[C, n_disc]`` → domain VALUES ``[C, n_disc]``
+    (one-hot multiply-add over the per-var value table; V is tiny)."""
+    out = torch.zeros(xd.shape, device=xd.device)
+    for v in range(fg.max_v):
+        out = out + torch.where(xd == v, fg.disc_vals[None, :, v], 0.0)
+    return out
+
+
+def gibbs_sweep(fg: CompiledFG, gen, xc, xd, max_colors: int = 0):
+    """Chromatic-Gibbs sweep over the discrete latents of all chains
+    through the all-rows ``disc_logits``. ``max_colors > 0`` processes
+    only that many color classes, starting at a random rotation per chain
+    (random-scan Gibbs with capped per-sweep cost)."""
+    if fg.n_disc == 0:
+        return xd
+    C, dev = xd.shape[0], xd.device
+    n = fg.n_colors
+    if 0 < max_colors < n:
+        off = torch.randint(0, n, (C,), generator=gen, device=dev)
+        n = max_colors
+    else:
+        off = torch.zeros((C,), dtype=torch.int64, device=dev)
+    for s in range(n):
+        color = (off + s) % fg.n_colors
+        new = categorical(gen, fg.disc_logits(xc, xd))
+        xd = torch.where(fg.color_of[None, :] == color[:, None], new, xd)
+    return xd
+
+
+def _color_tabs(grp, j: int):
+    """The group's bucket tables at color ``j`` (leading axis removed)."""
+    out = []
+    for t in grp.bucket_tabs:
+        if t is None:
+            out.append(None)
+            continue
+        out.append({k: (None if v is None
+                        else {pk: pv[j] for pk, pv in v.items()}
+                        if isinstance(v, dict) else v[j])
+                    for k, v in t.items()})
+    return out
+
+
+def _color_class_logits(fg: CompiledFG, grp, tabs, xc, xd, xv):
+    """Full-conditional logits ``[C, M, V]`` of one color class of a
+    ``GibbsColorPlan`` group for all chains; ``tabs`` are the group's
+    tables at one color; ``xv`` is the value state ``state_values(fg,
+    xd)`` (``None`` when values are indices). Value lookups stay in value
+    space through the plan's ``disc_cval``/``sub_vals`` tables."""
+    V, M, C = fg.max_v, grp.n_vars, xc.shape[0]
+    dev = xc.device
+    logits = torch.zeros((C, M, V), device=dev)
+    cand = torch.arange(V, device=dev)
+    for b, t in zip(fg.buckets, tabs):
+        if t is None:
+            continue
+        R, ad = t["disc_idx"].shape
+        if xc.shape[1]:
+            xcs = torch.where(t["cont_mask"][None] > 0, xc[:, t["cont_idx"]],
+                              t["cont_const"][None])
+        else:
+            xcs = t["cont_const"][None].expand((C,) + t["cont_const"].shape)
+        lat = (t["disc_mask"] > 0)[None]
+        cval = (t["disc_const"].to(torch.float32) if t["disc_cval"] is None
+                else t["disc_cval"])[None]
+        if xd.shape[1]:
+            xdi = torch.where(lat, xd[:, t["disc_idx"]], t["disc_const"][None])
+            xdv = torch.where(lat, xdi.to(torch.float32) if xv is None
+                              else xv[:, t["disc_idx"]], cval)
+        else:
+            xdi = t["disc_const"][None].expand(C, R, ad)
+            xdv = cval.expand(C, R, ad)
+        sub = t["sub"][None, :, None, :]
+        # [C, R, V, ad]: all slots of the target var move jointly
+        xdi_p = torch.where(sub, cand[None, None, :, None], xdi[:, :, None, :])
+        sub_vals = (cand.to(torch.float32)[None, :] if t["sub_vals"] is None
+                    else t["sub_vals"])
+        xdv_p = torch.where(sub, sub_vals[None, :, :, None],
+                            xdv[:, :, None, :])
+        params = {k: v.reshape((1, R, 1) + v.shape[1:])
+                  for k, v in t["params"].items()}
+        lp = b.kernel(params, xcs[:, :, None, :], xdi_p, xdv_p)  # [C, R, V]
+        contrib = (torch.nan_to_num(lp, neginf=_NEG_BIG)
+                   * t["w"][None, :, None])
+        # scatter-free per-var reduction: vidx [M, D] indexes this color's
+        # rows (R = appended zero row)
+        contrib = torch.cat([contrib, torch.zeros((C, 1, V), device=dev)], 1)
+        logits = logits + torch.sum(contrib[:, t["vidx"]], dim=2)
+    return logits
+
+
+def gibbs_sweep_planned(fg: CompiledFG, gen, xc, xd, beta=1.0):
+    """One full exact chromatic sweep of all chains through the per-color
+    plan: each color step evaluates only the factor rows adjacent to that
+    color's variables; ``beta`` tempers the conditionals. Padded class
+    slots (var id ``n_disc``) write to a spare column that is dropped at
+    the end."""
+    if fg.n_disc == 0:
+        return xd
+    V, C = fg.max_v, xd.shape[0]
+    dev = xd.device
+    spare = torch.zeros((C, 1), dtype=xd.dtype, device=dev)
+    xd = torch.cat([xd, spare], dim=1)
+    vai = fg.color_plan.values_are_indices
+    xv = None if vai else torch.cat(
+        [state_values(fg, xd[:, :-1]), spare.to(torch.float32)], dim=1)
+    cand = torch.arange(V, device=dev)
+    for grp in fg.color_plan.groups:
+        for j in range(grp.n_colors):
+            logits = _color_class_logits(fg, grp, _color_tabs(grp, j), xc,
+                                         xd, xv)
+            valid = cand[None, :] < grp.sizes[j][:, None]
+            logits = torch.where(valid[None], beta * logits,
+                                 torch.full((), _NEG_BIG, device=dev))
+            new = categorical(gen, logits)  # [C, M]
+            xd[:, grp.vars_[j]] = new
+            if xv is not None:
+                nv = torch.zeros(new.shape, device=dev)
+                for v in range(V):
+                    nv = nv + torch.where(new == v, grp.vals_[j][None, :, v],
+                                          0.0)
+                xv[:, grp.vars_[j]] = nv
+    return xd[:, :-1]
+
+
+def planned_logits(fg: CompiledFG, xc, xd):
+    """``disc_logits``-shaped logits ``[C, n_disc, V]`` (or ``[n_disc, V]``
+    for one state) assembled from the color plan at a FIXED state: the
+    exact-identity hook that proves the plan matches ``disc_logits``."""
+    if xc.dim() == 1:
+        return planned_logits(fg, xc[None], xd[None])[0]
+    V, C = fg.max_v, xc.shape[0]
+    dev = xc.device
+    out = torch.zeros((C, fg.n_disc + 1, V), device=dev)
+    xv = (None if fg.color_plan.values_are_indices
+          else state_values(fg, xd))
+    for grp in fg.color_plan.groups:
+        for j in range(grp.n_colors):
+            out[:, grp.vars_[j]] = _color_class_logits(
+                fg, grp, _color_tabs(grp, j), xc, xd, xv)
+    valid = torch.arange(V, device=dev)[None, :] < fg.disc_sizes[:, None]
+    return torch.where(valid[None], out[:, : fg.n_disc],
+                       torch.full((), _NEG_BIG, device=dev))
 
 
 def sweep_all(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd):
-    """cfg.gibbs_sweeps chromatic sweeps over all chains: the identity on
-    models without discrete latents (the only ones this slice runs)."""
+    """cfg.gibbs_sweeps chromatic sweeps over all chains: through the
+    per-color plan when the model has one, else (or with
+    ``gibbs_max_colors > 0``) through the rotated all-rows path."""
     if fg.n_disc == 0:
         return xd
-    raise NotImplementedError("chromatic Gibbs sweeps " + _SLICE2)
+    planned = fg.color_plan is not None and cfg.gibbs_max_colors == 0
+    for _ in range(cfg.gibbs_sweeps):
+        if planned:
+            xd = gibbs_sweep_planned(fg, gen, xc, xd)
+        else:
+            xd = gibbs_sweep(fg, gen, xc, xd, cfg.gibbs_max_colors)
+    return xd
 
 
 def _use_dia(fg: CompiledFG, cfg: HMCConfig) -> bool:
@@ -137,9 +302,31 @@ def _mh_accept(xc, x1, log_acc, u):
 
 def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd, eps,
                       inv_mass):
-    """One HMC proposal for ALL chains on a purely-quadratic target."""
-    _check_supported(fg, cfg)
+    """One HMC proposal for ALL chains → ``(xc', accept prob [C])``.
+
+    Purely-quadratic targets take the fused proposals; others one
+    lockstep batched leapfrog through ``ops.logpot.logpot_leapfrog``
+    (autograd over ``log_prob_cont_batched``, or kernel K5 with
+    ``cfg.fused_logpot``), whose energies come back with the endpoint.
+    Purely-discrete buckets are constant in xc at the chain's fixed xd and
+    drop out of the Hamiltonian exactly."""
     C = xc.shape[0]
+    if not fg.cont_pure_quad:
+        from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
+
+        std = torch.sqrt(1.0 / torch.clamp(inv_mass, min=1e-12))
+        p0 = std[None, :] * torch.randn(xc.shape, generator=gen,
+                                        device=xc.device)
+        x1, p1, lp0, lp1 = logpot_leapfrog(
+            fg, xc, p0, xd, inv_mass, eps, cfg.n_leapfrog,
+            plan="auto" if cfg.fused_logpot else None)
+        h0 = -lp0 + _kinetic(inv_mass, p0)
+        h1 = -lp1 + _kinetic(inv_mass, p1)
+        log_acc = torch.clamp(h0 - h1, max=0.0)
+        log_acc = torch.where(torch.isfinite(log_acc), log_acc,
+                              torch.full((), -math.inf, device=xc.device))
+        u = torch.rand((C,), generator=gen, device=xc.device)
+        return _mh_accept(xc, x1, log_acc, u)
     if _use_dia(fg, cfg):
         from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
 
@@ -159,7 +346,8 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd, eps,
 
 def hmc_transition(fg: CompiledFG, cfg: HMCConfig, state: HMCState, gen,
                    adapt: bool):
-    """One full transition for all chains."""
+    """One full HMC-within-Gibbs transition for all chains: the Gibbs
+    sweep(s), then one HMC proposal at the new discrete state."""
     xd = sweep_all(fg, cfg, gen, state.xc, state.xd)
     eps = torch.exp(state.log_eps)
     xc, acc = _hmc_step_batched(fg, cfg, gen, state.xc, xd, eps,
@@ -363,6 +551,91 @@ def _stream_diag_finalize(sd: _StreamDiag, n_samples: int,
     return {"rhat": rhat, "ess_proxy": ess, "ess_bm": ess_bm}
 
 
+class _StreamDiagDisc(NamedTuple):
+    """Split-half Welford pairs over the VALUE states of the monitored
+    discrete latents (``disc_diag_select``): the streamed split-R̂ of the
+    Gibbs half. All ``[C, n_sel]`` f32."""
+
+    h1_mean: torch.Tensor
+    h1_m2: torch.Tensor
+    h2_mean: torch.Tensor
+    h2_m2: torch.Tensor
+
+
+def _stream_diag_disc_init(C: int, n_sel: int, device) -> _StreamDiagDisc:
+    return _StreamDiagDisc(*(torch.zeros((C, n_sel), device=device)
+                             for _ in range(4)))
+
+
+def disc_diag_select(fg: CompiledFG, cap: int, seed: int = 0) -> np.ndarray:
+    """Deterministic host-side selection of the discrete latents whose
+    value traces carry streamed split-R̂: all ``n_disc`` when ``n_disc <=
+    cap``, else ``cap`` of them stratified over the chromatic color
+    classes by largest-remainder allocation (≥1 per class while the
+    budget allows), drawn with ``numpy.random.default_rng(seed)``."""
+    n = fg.n_disc
+    if n <= cap:
+        return np.arange(n, dtype=np.int32)
+    colors = np.asarray(fg.meta.np_global["color_of"])
+    rng = np.random.default_rng(seed)
+    uniq, counts = np.unique(colors, return_counts=True)
+    quota = np.floor(cap * counts / n).astype(np.int64)
+    if len(uniq) <= cap:
+        quota = np.maximum(quota, 1)
+    rem = cap * counts / n - np.floor(cap * counts / n)
+    while quota.sum() < cap:
+        i = int(np.argmax(rem))
+        quota[i] += 1
+        rem[i] = -1.0
+    while quota.sum() > cap:
+        i = int(np.argmax(quota))
+        quota[i] -= 1
+    sel = []
+    for c, q in zip(uniq, quota):
+        if q <= 0:
+            continue
+        idx = np.flatnonzero(colors == c)
+        sel.append(rng.choice(idx, size=min(int(q), idx.size),
+                              replace=False))
+    return np.sort(np.concatenate(sel)).astype(np.int32)
+
+
+def _disc_sel_values(fg: CompiledFG, sel, xd):
+    """``[C, n_sel]`` f32 domain VALUES of the selected discrete latents."""
+    xs = xd[:, sel]
+    vals = fg.disc_vals[sel]  # [n_sel, V]
+    out = torch.zeros(xs.shape, device=xd.device)
+    for v in range(fg.max_v):
+        out = out + torch.where(xs == v, vals[None, :, v], 0.0)
+    return out
+
+
+def _stream_diag_disc_update(sdd: _StreamDiagDisc, t: int, xv,
+                             half: int) -> _StreamDiagDisc:
+    """Fold draw ``t``'s selected discrete VALUES into the accumulators."""
+    return _StreamDiagDisc(*_split_welford_update(
+        sdd.h1_mean, sdd.h1_m2, sdd.h2_mean, sdd.h2_m2, t, xv, half))
+
+
+def _stream_diag_disc_finalize(sdd: _StreamDiagDisc, n_samples: int) -> dict:
+    """{'rhat_disc': [n_sel]}: exact split-R̂ over the selected value
+    traces. A latent frozen at one value across all chains and halves
+    (B = W = 0) reports 1.0; B > 0 with W = 0 still blows up."""
+    half = n_samples // 2
+    n = sdd.h1_mean.shape[1]
+    dev = sdd.h1_mean.device
+    if half < 2:
+        return {"rhat_disc": torch.full((n,), math.nan, device=dev)}
+    chain_mean = torch.cat([sdd.h1_mean, sdd.h2_mean], dim=0)
+    chain_var = torch.cat([sdd.h1_m2, sdd.h2_m2], dim=0) / (half - 1)
+    B = half * torch.var(chain_mean, dim=0, correction=1)
+    W = torch.mean(chain_var, dim=0)
+    var_hat = (half - 1) / half * W + B / half
+    rhat = torch.sqrt(var_hat / torch.clamp(W, min=1e-12))
+    frozen = (W <= 0.0) & (B <= 1e-12)
+    return {"rhat_disc": torch.where(frozen, torch.ones_like(rhat), rhat)}
+
+
 def _bm_schedule(n_samples: int) -> tuple:
     """(batch length, batch count) for the batch-means stream: b = ⌊√S⌋;
     (0, 0) when fewer than two complete batches fit."""
@@ -381,18 +654,23 @@ def run_hmc(
     thin: int = 1,
     collect: str = "samples",
     stream_diag: bool = True,
+    disc_diag_cap: int = 4096,
 ):
     """Run the sampler.
 
     ``gen`` is a ``torch.Generator`` on ``fg.device``; it drives every draw
-    (initial state, momenta, accept uniforms); on the banded CUDA path
-    its seed and Philox offset key K2's in-kernel momenta.
+    (initial state, Gibbs, momenta, accept uniforms); on the banded CUDA
+    path its seed and Philox offset key K2's in-kernel momenta.
 
     collect="samples": returns (samples_xc [S,C,n_cont], samples_xd
     [S,C,n_disc], diag). collect="moments": streams sufficient statistics
     on the device instead of materializing the sample array; returns
     (moments dict, None, diag). ``stream_diag`` (moments mode) carries the
     streamed split-R̂/ESS accumulators; False for pure-throughput runs.
+    ``disc_diag_cap`` (moments mode, with ``stream_diag``): how many
+    discrete latents carry streamed split-R̂ over their value traces
+    (``diag["rhat_disc"]``, ``diag["disc_diag_idx"]`` naming them; see
+    ``disc_diag_select``); 0 disables it.
     """
     if collect not in ("samples", "moments"):
         raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
@@ -418,23 +696,35 @@ def run_hmc(
         bm_len, n_batches = _bm_schedule(n_samples)
         s1 = torch.zeros(fg.n_cont, device=dev)
         s2 = torch.zeros(fg.n_cont, device=dev)
+        cnt = torch.zeros((max(fg.n_disc, 1), fg.max_v), device=dev)
         sd = _stream_diag_init(n_chains, fg.n_cont, dev) if stream_diag else None
+        want_disc = stream_diag and fg.n_disc > 0 and disc_diag_cap > 0
+        if want_disc:
+            sel_np = disc_diag_select(fg, disc_diag_cap)
+            sel = torch.as_tensor(sel_np, dtype=torch.int64, device=dev)
+            sdd = _stream_diag_disc_init(n_chains, len(sel_np), dev)
         for t in range(n_samples):
             state, acc = sample_step(state)
             acc_total = acc_total + acc
-            xc = state.xc
+            xc, xd = state.xc, state.xd
             s1 = s1 + torch.sum(xc, dim=0)
             s2 = s2 + torch.sum(xc * xc, dim=0)
+            if fg.n_disc:
+                cnt = cnt + torch.stack(
+                    [torch.sum(xd == v, dim=0) for v in range(fg.max_v)],
+                    dim=-1)
             if stream_diag:
                 sd = _stream_diag_update(sd, t, xc, half, bm_len, n_batches)
+            if want_disc:
+                sdd = _stream_diag_disc_update(
+                    sdd, t, _disc_sel_values(fg, sel, xd), half)
         n_obs = n_samples * n_chains
         mean = s1 / n_obs
         var = torch.clamp(s2 / n_obs - mean**2, min=0.0)
         moments = {
             "mean": mean,
             "var": var,
-            "disc_probs": torch.zeros((max(fg.n_disc, 1), fg.max_v),
-                                      device=dev),
+            "disc_probs": cnt / n_obs,
             "n_obs": n_obs,
         }
         diag = {
@@ -444,6 +734,9 @@ def run_hmc(
             **(_stream_diag_finalize(sd, n_samples, bm_len)
                if stream_diag else {}),
         }
+        if want_disc:
+            diag.update(_stream_diag_disc_finalize(sdd, n_samples))
+            diag["disc_diag_idx"] = sel
         return moments, None, diag
 
     s_xc, s_xd = [], []

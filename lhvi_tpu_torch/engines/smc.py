@@ -11,8 +11,9 @@ the adaptive CESS-targeted one), with
 - ESS-triggered systematic resampling: the parents are computed every
   temperature and selected with ``torch.where`` on the device-side ESS
   flag, as the reference's ``lax.cond`` — no host read;
-- HMC rejuvenation moves on the continuous latents: autograd leapfrog on
-  the tempered target (``ops.logpot``, the default), the fused dense
+- HMC rejuvenation moves on the continuous latents: leapfrog on the
+  tempered target (``ops.logpot``: autograd by default, the fused
+  log-potential kernel K5 with ``fused_logpot``), the fused dense
   leapfrog (K1, ``quad_moves``), or on sparse quadratic targets the banded
   proposal (K2) or the ELL leapfrog.
 
@@ -21,8 +22,8 @@ adaptive schedule reads one flag per temperature (``β < 1``, the
 reference's ``lax.cond``) and stops the loop once β reaches 1.
 
 Not in this slice (each raises ``NotImplementedError`` naming its slice):
-discrete latents (tempered Gibbs), ``mode_swap``, ``fused_logpot`` and a
-sharded particle axis.
+discrete latents (tempered Gibbs), ``mode_swap`` and a sharded particle
+axis.
 """
 
 from __future__ import annotations
@@ -80,10 +81,6 @@ def _check_supported(fg: CompiledFG, cfg: SMCConfig, shard):
         raise NotImplementedError(
             "mode_swap arrives with Slice 7, the pod flagship "
             "(ROADMAP Queue 1 item 9)")
-    if cfg.fused_logpot:
-        raise NotImplementedError(
-            "fused_logpot (kernel K5) arrives with Slice 8, the fused "
-            "non-quadratic path (ROADMAP Queue 1 item 10)")
     if shard is not None:
         raise NotImplementedError(
             "a sharded particle axis arrives with Slice 10, runtime and "
@@ -169,9 +166,10 @@ def _mh(gen, xc, x1, log_acc):
 
 
 def move_batched(fg: CompiledFG, cfg: SMCConfig, gen, xc, xd, beta, step):
-    """HMC move on the tempered target: autograd leapfrog over
-    ``log_prob_cont_batched`` (``ops.logpot``); the base-measure constants
-    it drops cancel in h0 − h1."""
+    """HMC move on the tempered target through ``ops.logpot``: autograd
+    over ``log_prob_cont_batched``, or kernel K5 with ``cfg.fused_logpot``
+    (``plan="auto"``); the base-measure constants it drops cancel in
+    h0 − h1."""
     from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
 
     mid = 0.5 * (fg.cont_lo + fg.cont_hi)
@@ -179,7 +177,8 @@ def move_batched(fg: CompiledFG, cfg: SMCConfig, gen, xc, xd, beta, step):
     p0 = torch.randn(xc.shape, generator=gen, device=xc.device)
     x1, p1, lp0, lp1 = logpot_leapfrog(
         fg, xc, p0, xd, torch.ones_like(mid), step, cfg.n_leapfrog,
-        beta=beta, base_mid=mid, base_inv_s2=1.0 / (scale * scale))
+        beta=beta, base_mid=mid, base_inv_s2=1.0 / (scale * scale),
+        plan="auto" if cfg.fused_logpot else None)
     h0 = -lp0 + 0.5 * torch.sum(p0 * p0, -1)
     h1 = -lp1 + 0.5 * torch.sum(p1 * p1, -1)
     return _mh(gen, xc, x1, _log_acc(h0, h1))

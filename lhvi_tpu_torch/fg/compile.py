@@ -12,14 +12,15 @@ every engine consumes only that IR:
   0.0 for padding);
 - Gaussian-quadratic buckets are folded into one information form
   ``(J, h, c)``: dense up to ``quad_max_n`` latents, ELL past it, refined
-  to banded DIA when the offsets form a small set (``ops/dia.py``).
+  to banded DIA when the offsets form a small set (``ops/dia.py``);
+- a chromatic schedule (greedy conflict coloring of the discrete latents,
+  ``color_of``) and two Gibbs plans are precomputed: the scatter-free
+  gather plan behind ``disc_logits`` (``GibbsGather``) and the per-color
+  tables of the planned sweep (``GibbsColorPlan``).
 
 All host-side table construction is the reference's numpy code, so the
-host mirrors (``FGMeta.np_buckets``/``np_global``) and the information-form
-tables equal the reference's exactly. The discrete-Gibbs plan
-(``disc_logits``, the conflict coloring and the color plan) arrives with
-the hybrid HMC-within-Gibbs slice; until then ``gibbs`` and
-``color_plan`` are ``None``.
+host mirrors (``FGMeta.np_buckets``/``np_global``), the information-form
+tables and the Gibbs plans equal the reference's exactly.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import torch
 
 from lhvi_tpu_torch.fg.graph import Domain, F, Graph, RV
 from lhvi_tpu_torch.potentials.library import select_last
+
+_NEG_BIG = -1e30
 
 
 class FGMeta:
@@ -81,6 +84,13 @@ class FactorBucket:
     disc_vals: torch.Tensor  # f32 [n_f, ad, Vmax] slot index->value tables
     disc_size: torch.Tensor  # i64 [n_f, ad] slot domain sizes
     scale: torch.Tensor  # f32 [n_f] orbit count (0 = padding)
+    # optional factor-minor kernel (Potential.kernel_planar), traced by
+    # the fused log-potential kernel K5 (ops/logpot.py)
+    kernel_planar: Any = None
+
+    @property
+    def n_factors(self) -> int:
+        return self.scale.shape[0]
 
     @property
     def ac(self) -> int:
@@ -110,6 +120,72 @@ class FactorBucket:
             xdv = xdi.to(torch.float32)
         params = {k: v[None] for k, v in self.params.items()}
         return params, xcs, xdi, xdv
+
+    def slot_values(self, xdi: torch.Tensor) -> torch.Tensor:
+        """Slot value-indices ``[C, n_f, *extra, ad]`` → domain values
+        (out-of-range candidate indices give 0, as the reference)."""
+        if self.ad == 0:
+            return xdi.to(torch.float32)
+        n_extra = xdi.dim() - 3  # axes between the factor and slot axes
+        vals = self.disc_vals.reshape(
+            (1, self.disc_vals.shape[0]) + (1,) * n_extra
+            + self.disc_vals.shape[1:])
+        return select_last(vals, xdi)
+
+
+def _expand_params(params: Dict[str, torch.Tensor], n_axes: int):
+    """Insert ``n_axes`` singleton axes after the factor axis (axis 1) of
+    every ``[1, n_f, …]`` leaf."""
+    return {k: v.reshape(v.shape[:2] + (1,) * n_axes + v.shape[2:])
+            for k, v in params.items()}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GibbsGather:
+    """Compile-time gather plan for the discrete full-conditional logits:
+    every (bucket, slot, factor) contribution gets a static flat row id;
+    variables are grouped by incidence degree with per-group index tables
+    into the flat contribution array (row ``F_tot`` = zero padding); a
+    static permutation maps group-concatenated results back to variable
+    order."""
+
+    degrees: Tuple[int, ...]
+    idx: Tuple[torch.Tensor, ...]  # per group i64 [m_g, d_g] into flat rows
+    pos_of_var: torch.Tensor  # i64 [n_disc] var -> row in concat(groups)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GibbsColorGroup:
+    """One group of a ``GibbsColorPlan``: colors of similar cost, padded to
+    uniform shapes. Per color the tables hold exactly the factor rows
+    adjacent to that color's variables, so a full chromatic sweep costs
+    O(Σ_v deg(v)) kernel-row evaluations.
+
+    ``bucket_tabs[i]`` is ``None`` when bucket ``i`` has no rows in this
+    group; otherwise a dict of tensors with leading dims ``[nc, R]``:
+    pre-gathered slot tables, ``sub`` (slots referencing the target
+    variable, substituted jointly by the candidate value), ``disc_cval``
+    (domain values of observed slots' indices), ``sub_vals`` (``[nc, R,
+    Vmax]`` candidate domain values of the target), ``w`` (factor scale;
+    0 = padding), ``vidx`` (``[nc, M, D]`` per-var gather into the color's
+    row block; index R = zero row) and ``params``. ``disc_cval`` and
+    ``sub_vals`` are ``None`` where every slot's values are its indices.
+    """
+
+    n_colors: int
+    n_vars: int  # M = padded class size
+    vars_: torch.Tensor  # i64 [nc, M] global discrete var ids (pad = n_disc)
+    sizes: torch.Tensor  # i64 [nc, M] domain sizes (pad = 1)
+    vals_: Any  # f32 [nc, M, Vmax] index->value (None if values_are_indices)
+    bucket_tabs: Tuple
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GibbsColorPlan:
+    groups: Tuple[GibbsColorGroup, ...]
+    # every latent discrete domain's values are exactly 0..K-1: the sweep
+    # derives slot values from indices and carries no value state
+    values_are_indices: bool = False
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -149,8 +225,10 @@ class CompiledFG:
     quad_J: torch.Tensor  # f32 [n_cont, n_cont] (or [0, 0])
     quad_h: torch.Tensor  # f32 [n_cont]
     quad_c: torch.Tensor  # f32 scalar
-    gibbs: Any = None
-    color_plan: Any = None
+    gibbs: Any = None  # GibbsGather (None when built from tables)
+    color_plan: Any = None  # GibbsColorPlan | None
+    n_colors: int = 1
+    color_of: Any = None  # i64 [n_disc] chromatic-Gibbs color per latent
     quad_diag: Any = None  # f32 [n_cont]
     quad_ell_col: Any = None  # i64 [n_cont, D]
     quad_ell_w: Any = None  # f32 [n_cont, D]
@@ -224,6 +302,53 @@ class CompiledFG:
         for i in self.cont_bucket_idx:
             total = total + self._bucket_logp_batched(i, xc, xd)
         return total
+
+    def disc_logits(self, xc: torch.Tensor, xd: torch.Tensor) -> torch.Tensor:
+        """Per-variable full-conditional logits of the discrete latents.
+
+        ``xc [C, n_cont]``, ``xd [C, n_disc]`` → f32 ``[C, n_disc, max_v]``
+        (one state without the leading axis gives ``[n_disc, max_v]``):
+        for each latent d and candidate value v, Σ over factors adjacent
+        to d of ``scale · log φ`` with d set to v (other slots at the
+        current state); invalid candidates carry ``-1e30``. Slots sharing
+        d's variable are set jointly and only the first occurrence
+        contributes (``disc_first``), so a factor naming d twice yields
+        ``log φ(v, …, v)`` once. Assembled scatter-free through the
+        ``GibbsGather`` plan.
+        """
+        if xc.dim() == 1:
+            return self.disc_logits(xc[None], xd[None])[0]
+        C, V = xc.shape[0], self.max_v
+        dev = xc.device
+        if self.n_disc == 0:
+            return torch.zeros((C, 0, V), device=dev)
+        cand = torch.arange(V, device=dev)
+        rows = []
+        for b in self.buckets:
+            if b.ad == 0:
+                continue
+            params, xcs, xdi, _ = b.gather_args_batched(xc, xd)
+            params = _expand_params(params, 1)
+            xcs_b = xcs[:, :, None, :]
+            xdi_b = xdi[:, :, None, :].expand(C, b.n_factors, V, b.ad)
+            lat = b.disc_mask > 0
+            for p in range(b.ad):
+                same = ((b.disc_idx == b.disc_idx[:, p:p + 1]) & lat
+                        & lat[:, p:p + 1])
+                xdi_p = torch.where(same[None, :, None, :],
+                                    cand[None, None, :, None], xdi_b)
+                lp = b.kernel(params, xcs_b, xdi_p, b.slot_values(xdi_p))
+                w = b.scale * b.disc_mask[:, p] * b.disc_first[:, p]
+                rows.append(torch.nan_to_num(lp, neginf=_NEG_BIG)
+                            * w[None, :, None])
+        if not rows:
+            return torch.full((C, self.n_disc, V), _NEG_BIG, device=dev)
+        flat = torch.cat(rows + [torch.zeros((C, 1, V), device=dev)], dim=1)
+        parts = [torch.sum(flat[:, idx_g], dim=2) for idx_g in self.gibbs.idx]
+        logits = torch.cat(parts, dim=1)[:, self.gibbs.pos_of_var]
+        valid = cand[None, :] < self.disc_sizes[:, None]
+        return torch.where(valid[None], logits,
+                           torch.full((), _NEG_BIG, device=dev))
 
     def init_state_batched(self, gen: torch.Generator, n: int,
                            jitter: float = 0.1):
@@ -460,6 +585,7 @@ def compile_graph(
                 kind=str(bkey),
                 pattern=pattern,
                 kernel=fs[0].potential.kernel(pattern),
+                kernel_planar=fs[0].potential.kernel_planar(pattern),
                 params={k: _tensor(v, device) for k, v in params.items()},
                 **{k: _tensor(np_b[k], device) for k in (
                     "cont_idx", "cont_mask", "cont_const", "disc_idx",
@@ -467,6 +593,10 @@ def compile_graph(
                     "disc_size", "scale")},
             )
         )
+
+    # --- chromatic Gibbs schedule ---------------------------------------
+    color_of = _greedy_color(g, meta, n_disc).astype(np.int32)
+    n_colors = int(color_of.max() + 1) if n_disc else 1
 
     if cont_counts is None:
         cont_counts = np.ones(n_cont, np.float32)
@@ -537,9 +667,13 @@ def compile_graph(
         i for i, fused in enumerate(fused_flags) if not fused
     )
 
+    gibbs = _build_gibbs_gather(meta.np_buckets, n_disc, device)
+    color_plan = _build_color_plan(meta.np_buckets, n_disc, color_of,
+                                   disc_sizes, device, disc_vals)
     meta.np_global = {
         "disc_sizes": disc_sizes,
         "disc_vals": disc_vals,
+        "color_of": color_of,
         "cont_lo": cont_lo,
         "cont_hi": cont_hi,
         "cont_ipoints": cont_ip,
@@ -577,4 +711,309 @@ def compile_graph(
         quad_dia_w=quad_dia_w,
         quad_dia_pos=quad_dia_pos,
         quad_dia_inv=quad_dia_inv,
+        gibbs=gibbs,
+        color_plan=color_plan,
+        n_colors=n_colors,
+        color_of=_tensor(color_of, device),
     )
+
+
+def _build_gibbs_gather(np_buckets: List[Dict[str, np.ndarray]],
+                        n_disc: int, device) -> GibbsGather:
+    """The scatter-free Gibbs plan (see ``GibbsGather``) from the host
+    mirrors. Flat row order matches ``disc_logits``'s emission order:
+    buckets in order (skipping ad == 0), slot-major, factor-minor."""
+    all_vars: List[np.ndarray] = []
+    all_rows: List[np.ndarray] = []
+    off = 0
+    for b in np_buckets:
+        ad = b["disc_idx"].shape[1]
+        if ad == 0:
+            continue
+        disc_idx = b["disc_idx"]
+        disc_mask = b["disc_mask"] * b["disc_first"]
+        n_f = disc_idx.shape[0]
+        for p in range(ad):
+            valid = disc_mask[:, p] > 0
+            all_rows.append(off + np.nonzero(valid)[0].astype(np.int64))
+            all_vars.append(disc_idx[valid, p].astype(np.int64))
+            off += n_f
+    return _group_gather(all_vars, all_rows, off, n_disc, device)
+
+
+def _group_gather(all_vars: List[np.ndarray], all_rows: List[np.ndarray],
+                  f_tot: int, n_var: int, device) -> GibbsGather:
+    """Group (var, flat-row) incidences into degree-bucketed gather tables
+    (row ``f_tot`` is the zero-padding row)."""
+    if n_var == 0 or not all_vars:
+        return GibbsGather(degrees=(), idx=(),
+                           pos_of_var=torch.zeros(max(n_var, 0),
+                                                  dtype=torch.int64,
+                                                  device=device))
+    vars_cat = np.concatenate(all_vars)
+    rows_cat = np.concatenate(all_rows)
+    order = np.argsort(vars_cat, kind="stable")
+    rows_sorted = rows_cat[order]
+    deg = np.bincount(vars_cat, minlength=n_var)
+    starts = np.concatenate([[0], np.cumsum(deg)])
+
+    def pad_deg(d: int) -> int:  # limit distinct group shapes
+        if d <= 1:
+            return 1
+        p = 1
+        while p < d:
+            p *= 2
+        return p
+
+    group_vars: Dict[int, List[int]] = {}
+    for v in range(n_var):
+        group_vars.setdefault(pad_deg(int(deg[v])), []).append(v)
+
+    degrees, idx_arrays = [], []
+    pos_of_var = np.zeros(n_var, np.int64)
+    pos = 0
+    for d in sorted(group_vars):
+        vs = group_vars[d]
+        idx = np.full((len(vs), d), f_tot, np.int64)
+        for r, v in enumerate(vs):
+            k = int(deg[v])
+            idx[r, :k] = rows_sorted[starts[v]: starts[v] + k]
+            pos_of_var[v] = pos
+            pos += 1
+        degrees.append(d)
+        idx_arrays.append(_tensor(idx, device))
+    return GibbsGather(degrees=tuple(degrees), idx=tuple(idx_arrays),
+                       pos_of_var=_tensor(pos_of_var, device))
+
+
+def _build_color_plan(np_buckets: List[Dict[str, np.ndarray]], n_disc: int,
+                      color_of: np.ndarray, disc_sizes: np.ndarray, device,
+                      disc_vals: np.ndarray = None,
+                      row_cap: int = 50_000_000):
+    """Compile the per-color Gibbs tables (see ``GibbsColorGroup``): the
+    reference's numpy construction, tensors placed on ``device``.
+
+    For every (factor, discrete-var) adjacency edge: the factor row, the
+    joint-substitution mask (all slots naming that var), the factor scale
+    and the target's position in its color class. Colors are refined by
+    per-var degree, grouped into power-of-two cost buckets, and every
+    bucket's slot tables/params are pre-gathered per color.
+
+    Returns ``None`` when there are no discrete latents, no edges, or the
+    padded tables would exceed ``row_cap`` rows.
+    """
+    if n_disc == 0:
+        return None
+    n_colors = int(color_of.max() + 1)
+
+    bucket_edges = []
+    for np_b in np_buckets:
+        ad = np_b["disc_idx"].shape[1]
+        if ad == 0:
+            bucket_edges.append(None)
+            continue
+        d_idx, d_mask, scale = (
+            np_b["disc_idx"], np_b["disc_mask"], np_b["scale"]
+        )
+        keys, slots = [], []
+        for p in range(ad):
+            r = np.nonzero((d_mask[:, p] > 0) & (scale > 0))[0]
+            keys.append(r.astype(np.int64) * n_disc + d_idx[r, p])
+            slots.append(np.full(len(r), p, np.int64))
+        keys = np.concatenate(keys) if keys else np.zeros(0, np.int64)
+        if len(keys) == 0:
+            bucket_edges.append(None)
+            continue
+        slots = np.concatenate(slots)
+        uniq, inv = np.unique(keys, return_inverse=True)
+        sub = np.zeros((len(uniq), ad), bool)
+        sub[inv, slots] = True
+        edge_r = (uniq // n_disc).astype(np.int64)
+        edge_v = (uniq % n_disc).astype(np.int64)
+        bucket_edges.append(
+            (edge_r, edge_v, sub, np_b["scale"][edge_r].astype(np.float32))
+        )
+    if all(e is None for e in bucket_edges):
+        return None
+
+    def _bits(x: np.ndarray) -> np.ndarray:
+        return np.ceil(np.log2(np.maximum(x, 1) + 1)).astype(np.int64)
+
+    # degree-refined coloring (subsets of independent sets stay
+    # independent; bounds the [M, D] gather padding)
+    deg_v = np.zeros(n_disc, np.int64)
+    for e in bucket_edges:
+        if e is not None:
+            deg_v += np.bincount(e[1], minlength=n_disc)
+    key2 = color_of.astype(np.int64) * 64 + _bits(deg_v)
+    _, color_eff = np.unique(key2, return_inverse=True)
+    color_of = color_eff.astype(np.int64).reshape(-1)
+    n_colors = int(color_of.max() + 1)
+
+    order = np.argsort(color_of, kind="stable")
+    counts = np.bincount(color_of, minlength=n_colors)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    tloc_of_var = np.zeros(n_disc, np.int64)
+    tloc_of_var[order] = np.arange(n_disc) - starts[color_of[order]]
+
+    b_sorted = []
+    for e in bucket_edges:
+        if e is None:
+            b_sorted.append(None)
+            continue
+        edge_r, edge_v, sub, w = e
+        ec = color_of[edge_v]
+        eo = np.argsort(ec, kind="stable")
+        ecounts = np.bincount(ec, minlength=n_colors)
+        estarts = np.concatenate([[0], np.cumsum(ecounts)])
+        b_sorted.append(
+            (edge_r[eo], edge_v[eo], sub[eo], w[eo], ecounts, estarts)
+        )
+
+    cost = np.zeros(n_colors, np.int64)
+    for e in b_sorted:
+        if e is not None:
+            cost += e[4]
+
+    dmax = np.zeros(n_colors, np.int64)
+    for e in b_sorted:
+        if e is None:
+            continue
+        edge_v = e[1]
+        per_var = np.bincount(edge_v, minlength=n_disc)
+        np.maximum.at(dmax, color_of[edge_v], per_var[edge_v])
+
+    gkey = (_bits(cost) * 64 + _bits(counts)) * 64 + _bits(dmax)
+    group_ids = {}
+    for c in range(n_colors):
+        group_ids.setdefault(int(gkey[c]), []).append(c)
+
+    total_rows = 0
+    for colors in group_ids.values():
+        for e in b_sorted:
+            if e is not None:
+                total_rows += len(colors) * int(e[4][colors].max())
+    if total_rows > row_cap:
+        return None
+
+    max_v = int(disc_sizes.max()) if len(disc_sizes) else 1
+    if disc_vals is None:
+        disc_vals = np.broadcast_to(
+            np.arange(max_v, dtype=np.float32), (n_disc, max_v)
+        )
+    ar = np.arange(max_v, dtype=np.float64)
+    vai = bool(
+        np.all((disc_vals[:, :max_v] == ar[None, :])
+               | (ar[None, :] >= disc_sizes[:, None]))
+    ) if n_disc else True
+    t = lambda a: _tensor(a, device)  # noqa: E731
+    groups = []
+    for _, colors in sorted(group_ids.items()):
+        nc = len(colors)
+        M = max(int(counts[colors].max()), 1)
+        vars_g = np.full((nc, M), n_disc, np.int64)
+        sizes_g = np.ones((nc, M), np.int64)
+        vals_g = None if vai else np.zeros((nc, M, max_v), np.float32)
+        for j, c in enumerate(colors):
+            members = order[starts[c]: starts[c] + counts[c]]
+            vars_g[j, : len(members)] = members
+            sizes_g[j, : len(members)] = disc_sizes[members]
+            if vals_g is not None:
+                vals_g[j, : len(members)] = disc_vals[members, :max_v]
+
+        tabs = []
+        for np_b, e in zip(np_buckets, b_sorted):
+            if e is None:
+                tabs.append(None)
+                continue
+            edge_r, edge_v, sub, w, ecounts, estarts = e
+            R = int(ecounts[colors].max())
+            if R == 0:
+                tabs.append(None)
+                continue
+            D = max(int(dmax[colors].max()), 1)
+            eid = np.zeros((nc, R), np.int64)  # pad: edge 0 with w=0
+            valid = np.zeros((nc, R), bool)
+            vidx = np.full((nc, M, D), R, np.int64)
+            for j, c in enumerate(colors):
+                k = ecounts[c]
+                sl = slice(estarts[c], estarts[c] + k)
+                ov = np.argsort(edge_v[sl], kind="stable")
+                eid[j, :k] = np.arange(estarts[c], estarts[c] + k)[ov]
+                valid[j, :k] = True
+                tl = tloc_of_var[edge_v[sl][ov]]
+                _, first, cnts_v = np.unique(
+                    tl, return_index=True, return_counts=True
+                )
+                occ = np.arange(k) - np.repeat(first, cnts_v)
+                vidx[j, tl, occ] = np.arange(k)
+            fr = edge_r[eid]  # [nc, R] factor rows
+            vals_rows = np_b["disc_vals"][fr]  # [nc, R, ad, Kb]
+            Kb = vals_rows.shape[-1]
+            if np.array_equal(
+                vals_rows,
+                np.broadcast_to(np.arange(Kb, dtype=vals_rows.dtype),
+                                vals_rows.shape),
+            ):
+                cval = None
+                sv = None
+            else:
+                cval = np.take_along_axis(
+                    vals_rows, np_b["disc_const"][fr][..., None].astype(
+                        np.int64), axis=-1
+                )[..., 0].astype(np.float32)
+                sub_eid = sub[eid]  # [nc, R, ad]
+                s0 = sub_eid.argmax(axis=-1)  # first substituted slot
+                sv = np.take_along_axis(
+                    vals_rows, s0[..., None, None], axis=2
+                )[:, :, 0, :]  # [nc, R, Kb]
+                if Kb < max_v:
+                    sv = np.concatenate(
+                        [sv, np.zeros(sv.shape[:-1] + (max_v - Kb,),
+                                      sv.dtype)], axis=-1)
+            tabs.append({
+                "cont_idx": t(np_b["cont_idx"][fr]),
+                "cont_mask": t(np_b["cont_mask"][fr]),
+                "cont_const": t(np_b["cont_const"][fr]),
+                "disc_idx": t(np_b["disc_idx"][fr]),
+                "disc_mask": t(np_b["disc_mask"][fr]),
+                "disc_const": t(np_b["disc_const"][fr]),
+                "disc_cval": None if cval is None else t(cval),
+                "sub_vals": (None if sv is None
+                             else t(sv[..., :max_v].astype(np.float32))),
+                "params": {k: t(v[fr]) for k, v in np_b["params"].items()},
+                "sub": t(sub[eid]),
+                "w": t(np.where(valid, w[eid], 0.0).astype(np.float32)),
+                "vidx": t(vidx),
+            })
+        groups.append(GibbsColorGroup(
+            n_colors=nc, n_vars=M, vars_=t(vars_g), sizes=t(sizes_g),
+            vals_=None if vals_g is None else t(vals_g),
+            bucket_tabs=tuple(tabs)))
+    return GibbsColorPlan(groups=tuple(groups), values_are_indices=vai)
+
+
+def _greedy_color(g: Graph, meta: FGMeta, n_disc: int) -> np.ndarray:
+    """Greedy conflict coloring of discrete latent slots (two slots conflict
+    if some factor touches both) → a valid chromatic-Gibbs schedule."""
+    adj: List[set] = [set() for _ in range(n_disc)]
+    for f in g.factors:
+        slots = []
+        for rv in f.nb:
+            kind, idx = meta.index[id(rv)]
+            if kind == "d":
+                slots.append(idx)
+        for a in slots:
+            for b in slots:
+                if a != b:
+                    adj[a].add(b)
+    color = -np.ones(n_disc, np.int64)
+    for v in range(n_disc):
+        used = {color[u] for u in adj[v] if color[u] >= 0}
+        c = 0
+        while c in used:
+            c += 1
+        color[v] = c
+    if n_disc == 0:
+        return np.zeros(0, np.int64)
+    return color

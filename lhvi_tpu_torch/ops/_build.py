@@ -49,6 +49,11 @@ _SIGNATURES = {
     "lhvi_nuts_traj_scratch": (_I, _I, _I),
     # log_w, lw_norm, cum, stats (step_z, ess), N, stream
     "lhvi_weight_pipeline": (_P, _P, _P, _P, _I, _P),
+    # x, p, inv_mass, eps, beta, J, h, mid, is2 (null when absent),
+    # row_bucket, bucket_tape, tape op/a/b/c, cidx, cconst, prm, w,
+    # disc values (or null), csr_ptr, csr_ent, x_out, p_out, e0, e1,
+    # C, n, n_active, n_rows, acm, adm, pm, n_steps, stream
+    "lhvi_logpot_leapfrog": (_P,) * 26 + (_I,) * 8 + (_P,),
 }
 
 

@@ -1,22 +1,61 @@
 """Batched leapfrog on (possibly tempered) non-quadratic targets (PyTorch
-port of ``lhvi_tpu/ops/logpot.py``, the reference's XLA path).
+port of ``lhvi_tpu/ops/logpot.py``), with the fused log-potential kernel
+K5 (``csrc/logpot_leapfrog.cu``).
 
 The tempered continuous energy
 
-    E(x) = β·log_prob_cont_batched(x, xd) + (1−β)·[−½ Σ_i (x_i − mid_i)² / s_i²]
+    E(x) = β·[ x·h − ½ xJx + Σ_buckets Σ_f w_f · log φ_f(slots_f(x)) ]
+           + (1−β)·[ −½ Σ_i (x_i − mid_i)² / s_i² ]
 
-and its gradient (``torch.autograd.grad``) drive an n-step leapfrog with
-merged half-kicks: SMC's default rejuvenation move. The reference's fused
-Pallas kernel for this function (K5, ``plan="auto"`` or a plan object)
-arrives with Slice 8; until then those plans raise.
+and its gradient drive an n-step leapfrog with merged half-kicks. Three
+routes compute the same thing:
+
+- ``plan=None``: autograd over ``fg.log_prob_cont_batched``
+  (``_torch_logpot_leapfrog``, the reference's ``_jnp_logpot_leapfrog``);
+- a :class:`LogpotPlan` on CUDA tensors: ONE launch of K5 per proposal,
+  which keeps a tile of chains' positions, momenta and gradients in
+  shared memory for the whole trajectory and interprets each bucket's
+  traced tape (``ops/logpot_tape.py``) forward and backward per
+  (chain, factor);
+- a plan on CPU tensors: the same trajectory with the energy and gradient
+  from :func:`tape_energy_grad`, K5's plain twin.
+
+``plan="auto"`` resolves to the cached plan on CUDA tensors and to
+``None`` on CPU tensors, as the reference resolves it off the TPU. The
+plan keeps the reference's eligibility rules (:func:`logpot_plan`), so
+the same models are eligible; a formula the tracer cannot record makes
+it raise.
+
+The plan's tables are gathers, not the reference's one-hot ``x @ G``
+matmuls (a Mosaic workaround): per factor row and continuous slot, the
+latent's index (−1 for evidence) and the evidence value; the gradient is
+assembled per variable from a CSR list of (row, slot) adjoints, so every
+run gives the same bits. Padded factor rows (scale 0) are dropped.
 """
 
 from __future__ import annotations
 
+import weakref
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
 import torch
 
-_SLICE8 = ("the fused log-potential kernel (K5) arrives with Slice 8, the "
-           "fused non-quadratic path (ROADMAP Queue 1 item 10)")
+from lhvi_tpu_torch.ops import _build
+from lhvi_tpu_torch.ops.leapfrog import _check_f32, eps_tensor
+from lhvi_tpu_torch.ops.logpot_tape import (
+    Tape,
+    param_table,
+    tape_forward,
+    tape_reverse,
+    trace_planar,
+)
+
+_LANE = 128  # the reference's footprint estimate counts 128-lane padding
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 def _torch_logpot_leapfrog(fg, x, p, xd, inv_mass, eps, beta, base_mid,
@@ -35,7 +74,9 @@ def _torch_logpot_leapfrog(fg, x, p, xd, inv_mass, eps, beta, base_mid,
     def grad(X):
         with torch.enable_grad():
             Xr = X.detach().requires_grad_(True)
-            return torch.autograd.grad(torch.sum(logp(Xr)), Xr)[0]
+            g = torch.autograd.grad(torch.sum(logp(Xr)), Xr,
+                                    allow_unused=True)[0]
+        return torch.zeros_like(X) if g is None else g
 
     with torch.no_grad():
         e0 = logp(x)
@@ -48,27 +89,420 @@ def _torch_logpot_leapfrog(fg, x, p, xd, inv_mass, eps, beta, base_mid,
     return x, p, e0, e1
 
 
-def logpot_leapfrog(fg, x, p, xd, inv_mass, eps, n_steps: int,
-                    beta=None, base_mid=None, base_inv_s2=None, plan=None):
-    """Batched leapfrog on a (possibly tempered) target.
+class _BucketPlan:
+    """One xc-dependent bucket in the plan: its tape and its real rows'
+    positions in the plan's row space."""
 
-    x, p: [C, n_cont]; xd: [C, n_disc] (held fixed); eps and beta may be
-    floats or 0-d tensors. Returns ``(x1, p1, lp0, lp1)`` where lp is the
-    log-density of the tempered target at the start and end points, up to
-    an x-independent constant. ``plan=None`` is the only route in this
-    slice.
+    def __init__(self, bucket_index: int, pattern, tape: Tape,
+                 rows: torch.Tensor, src_rows: np.ndarray):
+        self.bucket_index = bucket_index
+        self.pattern = pattern
+        self.tape = tape
+        self.rows = rows  # i64 [R_b] plan rows of this bucket's factors
+        self.src_rows = src_rows  # their rows in the bucket's tables
+
+
+class LogpotPlan:
+    """The fused kernel's tables for one compiled graph, on ``fg.device``.
+
+    Rows: every real factor row of every xc-dependent bucket; the first
+    ``n_active`` read at least one latent continuous slot, the others
+    only evidence (their energy is constant along a trajectory, so K5
+    evaluates them once per proposal). Per row: ``cidx``/``cconst``
+    ``[R, ACM]`` (latent index or −1, evidence value), ``prm [R, PM]``
+    (parameters in the planar layout), ``w [R]`` (scale) and
+    ``row_bucket``. Per variable: ``csr_ptr``/``csr_ent``, the entries
+    ``row·ACM + slot`` whose adjoints sum into its gradient. Discrete
+    slot values are gathered per proposal by :meth:`disc_values`.
     """
-    if plan is not None:
-        raise NotImplementedError(f"logpot_leapfrog(plan={plan!r}): "
-                                  + _SLICE8)
-    use_base = base_mid is not None
+
+    def __init__(self, fg, est_bytes: int, buckets: List[_BucketPlan],
+                 tables: dict):
+        self.n_cont = fg.n_cont
+        self.has_quad = bool(fg.has_quad)
+        self.est_bytes = est_bytes  # the reference's VMEM estimate (gate)
+        self.buckets = buckets
+        for k, v in tables.items():
+            setattr(self, k, v)
+
+    @property
+    def n_rows(self) -> int:
+        return self.w.shape[0]
+
+    def disc_values(self, xd: torch.Tensor) -> Optional[torch.Tensor]:
+        """``[C, R, ADM]`` f32 domain values of every row's discrete slots
+        at the state ``xd [C, n_disc]`` (fixed during a continuous move),
+        or None when no bucket has a discrete slot."""
+        if self.adm == 0:
+            return None
+        C = xd.shape[0]
+        if xd.shape[1]:
+            xi = torch.where(self.dlat[None], xd[:, self.dvar],
+                             self.dconst[None])
+        else:
+            xi = self.dconst[None].expand(C, -1)
+        vals = torch.gather(self.dtab[None].expand(C, -1, -1), 2,
+                            xi[..., None])[..., 0]
+        return vals.reshape(C, self.n_rows, self.adm)
+
+
+def _footprint(fg, idx, block_chains: int) -> Optional[int]:
+    """The reference's eligibility gate (``logpot_plan``): the TPU
+    kernel's VMEM estimate, or None when a bucket has no planar kernel."""
+    n_pad = _round_up(max(fg.n_cont, 1), _LANE)
+    total = 4 * (n_pad * n_pad + n_pad) if fg.has_quad else 0
+    for i in idx:
+        b = fg.buckets[i]
+        if b.kernel_planar is None:
+            return None
+        np_b = fg.meta.np_buckets[i]
+        F_pad = _round_up(b.n_factors, _LANE)
+        ci = 0
+        for is_cont in b.pattern:
+            if not is_cont:
+                total += 4 * block_chains * F_pad
+                continue
+            if (np_b["cont_mask"][:, ci] > 0).any():
+                total += 2 * 4 * n_pad * F_pad
+            ci += 1
+        for k in np_b["params"]:
+            rows = np.asarray(np_b["params"][k]).reshape(b.n_factors, -1)
+            total += 4 * rows.shape[1] * F_pad
+        total += 4 * F_pad
+        total += 4 * block_chains * F_pad * (4 * max(len(b.pattern), 1))
+    return total + 4 * block_chains * n_pad * 4
+
+
+def logpot_plan(fg, max_bytes: int = 8 << 20,
+                block_chains: int = 256) -> Optional[LogpotPlan]:
+    """Build the fused-kernel plan, or None where the reference's is None:
+    no xc-dependent buckets, an ELL-sparse quadratic form, a bucket
+    without a planar kernel, or the reference's footprint estimate above
+    ``max_bytes``. Raises ``NotImplementedError`` when an eligible
+    bucket's planar function cannot be traced into a tape."""
+    idx = fg.cont_bucket_idx
+    if not idx or fg.n_cont == 0 or fg.quad_sparse:
+        return None
+    est = _footprint(fg, idx, block_chains)
+    if est is None or est > max_bytes:
+        return None
+
+    dev = fg.device
+    n = fg.n_cont
+    traced = []  # (bucket index, tape, real rows, param table, np bucket)
+    for i in idx:
+        b = fg.buckets[i]
+        np_b = fg.meta.np_buckets[i]
+        prm = param_table(np_b["params"], b.n_factors)
+        counts = {k: int(np.asarray(v).reshape(b.n_factors, -1).shape[1])
+                  for k, v in np_b["params"].items()}
+        tape = trace_planar(b.kernel_planar, b.pattern, counts)
+        rows = np.flatnonzero(np_b["scale"] > 0)
+        traced.append((i, tape, rows, prm, np_b))
+    acm = max(1, max(fg.buckets[i].ac for i in idx))
+    adm = max(fg.buckets[i].ad for i in idx)
+    pm = max(1, max(t[3].shape[1] for t in traced))
+
+    # plan rows: active rows (a latent continuous slot) first, bucket by
+    # bucket, then the evidence-only rows
+    act, cst = [], []
+    for bi, (_, _, rows, _, np_b) in enumerate(traced):
+        lat = (np_b["cont_mask"][rows] > 0).any(axis=1)
+        act += [(bi, r) for r in rows[lat]]
+        cst += [(bi, r) for r in rows[~lat]]
+    order = act + cst
+    R = len(order)
+    row_bucket = np.zeros(R, np.int32)
+    cidx = np.full((R, acm), -1, np.int32)
+    cconst = np.zeros((R, acm), np.float32)
+    prm_all = np.zeros((R, pm), np.float32)
+    w = np.zeros(R, np.float32)
+    dvar = np.zeros((R, max(adm, 1)), np.int64)
+    dlat = np.zeros((R, max(adm, 1)), bool)
+    dconst = np.zeros((R, max(adm, 1)), np.int64)
+    vb = max([t[4]["disc_vals"].shape[-1] for t in traced] + [1])
+    dtab = np.zeros((R, max(adm, 1), vb), np.float32)
+    bucket_rows: List[List[int]] = [[] for _ in traced]
+    bucket_src: List[List[int]] = [[] for _ in traced]
+    for k, (bi, r) in enumerate(order):
+        _, _, _, prm, np_b = traced[bi]
+        bucket_rows[bi].append(k)
+        bucket_src[bi].append(r)
+        row_bucket[k] = bi
+        m = np_b["cont_mask"][r] > 0
+        ac = m.shape[0]
+        cidx[k, :ac] = np.where(m, np_b["cont_idx"][r], -1)
+        cconst[k, :ac] = np.where(m, 0.0, np_b["cont_const"][r])
+        prm_all[k, : prm.shape[1]] = prm[r]
+        w[k] = np_b["scale"][r]
+        ad = np_b["disc_idx"].shape[1]
+        if ad:
+            dl = np_b["disc_mask"][r] > 0
+            dvar[k, :ad] = np.where(dl, np_b["disc_idx"][r], 0)
+            dlat[k, :ad] = dl
+            dconst[k, :ad] = np_b["disc_const"][r]
+            kb = np_b["disc_vals"].shape[-1]
+            dtab[k, :ad, :kb] = np_b["disc_vals"][r]
+    # per-variable adjoint lists (row-major entry order: deterministic)
+    ent_var = cidx.reshape(-1)
+    ents = np.flatnonzero(ent_var >= 0)
+    ents = ents[np.argsort(ent_var[ents], kind="stable")]
+    csr_ptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(ent_var[ents], minlength=n))]
+    ).astype(np.int32)
+    tape_rows, codes, ta, tb, tc = [], [], [], [], []
+    off = 0
+    for _, tape, _, _, _ in traced:
+        code, a, b_, c = tape.arrays()
+        tape_rows.append((off, len(tape)))
+        codes.append(code)
+        ta.append(a)
+        tb.append(b_)
+        tc.append(c)
+        off += len(tape)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    tables = dict(
+        n_active=len(act), acm=acm, adm=adm, pm=pm,
+        row_bucket=t(row_bucket), bucket_tape=t(np.asarray(tape_rows,
+                                                           np.int32)),
+        tape_op=t(np.concatenate(codes)), tape_a=t(np.concatenate(ta)),
+        tape_b=t(np.concatenate(tb)), tape_c=t(np.concatenate(tc)),
+        cidx=t(cidx), cconst=t(cconst), prm=t(prm_all), w=t(w),
+        csr_ptr=t(csr_ptr), csr_ent=t(ents.astype(np.int32)),
+        dvar=t(dvar.reshape(-1)), dlat=t(dlat.reshape(-1)),
+        dconst=t(dconst.reshape(-1)), dtab=t(dtab.reshape(-1, vb)),
+    )
+    if fg.has_quad:
+        npg = fg.meta.np_global
+        tables["J"] = t(np.asarray(npg["quad_J"], np.float32))
+        tables["h"] = t(np.asarray(npg["quad_h"], np.float32))
+    else:
+        tables["J"] = tables["h"] = None
+    plans = [
+        _BucketPlan(i, fg.buckets[i].pattern, tape,
+                    t(np.asarray(bucket_rows[bi], np.int64)),
+                    np.asarray(bucket_src[bi], np.int64))
+        for bi, (i, tape, _, _, _) in enumerate(traced)
+    ]
+    return LogpotPlan(fg, est, plans, tables)
+
+
+def disc_slot_values(fg, xd: torch.Tensor) -> List[Tuple[torch.Tensor, ...]]:
+    """Per xc-dependent bucket, the tuple of per-disc-slot value tensors
+    ``[C, n_f]`` (original slot order), as the reference's; observed slots
+    read their evidence index through the slot's value table."""
+    out = []
+    for i in fg.cont_bucket_idx:
+        b = fg.buckets[i]
+        if b.ad == 0:
+            out.append(())
+            continue
+        C = xd.shape[0]
+        if xd.shape[1]:
+            xdi = torch.where(b.disc_mask[None] > 0, xd[:, b.disc_idx],
+                              b.disc_const[None])
+        else:
+            xdi = b.disc_const[None].expand((C,) + b.disc_const.shape)
+        xdv = torch.gather(b.disc_vals[None].expand((C,) + b.disc_vals.shape),
+                           3, xdi[..., None])[..., 0]
+        out.append(tuple(xdv[:, :, d] for d in range(b.ad)))
+    return out
+
+
+def tape_energy_grad(plan: LogpotPlan, x: torch.Tensor, dv):
+    """K5's plain twin: ``(E [C], ∇E [C, n])`` of the untempered model part
+    (``x·h − ½xJx + Σ w·log φ``, without ``quad_c``) at ``x [C, n]``, with
+    the discrete slots at ``dv = plan.disc_values(xd)``. Each bucket's
+    tape runs forward over ``[C, R_b]`` tensors and back for the slot
+    adjoints; energies are summed in double, as the kernel does."""
+    C = x.shape[0]
+    e = torch.zeros((C,), dtype=torch.float64, device=x.device)
+    g = torch.zeros_like(x)
+    if plan.has_quad:
+        xJ = x @ plan.J
+        e = e + torch.sum(x * (plan.h[None] - 0.5 * xJ), -1).double()
+        g = g + (plan.h[None] - xJ)
+    for bp in plan.buckets:
+        rows = bp.rows
+        ci = plan.cidx[rows]  # [R_b, ACM]
+        cont = [torch.where(ci[:, s] >= 0, x[:, ci[:, s].clamp(min=0)],
+                            plan.cconst[rows, s])
+                for s in range(sum(bp.pattern))]
+        disc = ([dv[:, rows, d] for d in range(len(bp.pattern)
+                                               - sum(bp.pattern))]
+                if dv is not None else [])
+        vals = tape_forward(bp.tape, cont, disc, plan.prm[rows])
+        w = plan.w[rows]
+        e = e + torch.sum(vals[-1] * w[None], -1).double()
+        adj = tape_reverse(bp.tape, vals, w[None].expand(C, -1))
+        for s, a in adj.items():
+            lat = ci[:, s] >= 0
+            g.index_add_(1, ci[lat, s].long(), a[:, lat])
+    return e, g
+
+
+def _plan_leapfrog(plan, x, p, dv, inv_mass, eps, beta, base_mid, base_is2,
+                   n_steps: int, use_base: bool):
+    """The kernel's trajectory in plain PyTorch over :func:`tape_energy_grad`
+    (merged half-kicks; energies in double, returned f32)."""
+
+    def e_g(x):
+        e, g = tape_energy_grad(plan, x, dv)
+        if use_base:
+            d = x - base_mid[None]
+            e = beta.double() * e - (1.0 - beta.double()) * 0.5 * torch.sum(
+                d * d * base_is2[None], -1).double()
+            g = beta * g - (1.0 - beta) * d * base_is2[None]
+        return e.to(torch.float32), g
+
+    e0, g = e_g(x)
+    p = p + 0.5 * eps * g
+    e1 = e0
+    for i in range(n_steps):
+        x = x + eps * inv_mass[None] * p
+        e1, g = e_g(x)
+        p = p + (0.5 if i == n_steps - 1 else 1.0) * eps * g
+    return x, p, e0, e1
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _cuda_logpot_leapfrog(plan, x, p, dv, inv_mass, eps, beta, base_mid,
+                          base_is2, n_steps: int, use_base: bool):
+    C, n = x.shape
     dev = x.device
+    eps, beta = eps_tensor(eps, dev), eps_tensor(beta, dev)
+    checks = [("x", x, (C, n)), ("p", p, (C, n)), ("inv_mass", inv_mass, (n,)),
+              ("eps", eps, ()), ("beta", beta, ())]
+    if use_base:
+        checks += [("base_mid", base_mid, (n,)), ("base_inv_s2", base_is2, (n,))]
+    if dv is not None:
+        checks.append(("disc values", dv, (C, plan.n_rows, plan.adm)))
+    for name, t_, shape in checks:
+        _check_f32(name, t_, dev, shape)
+    xo, po = torch.empty_like(x), torch.empty_like(p)
+    e0 = torch.empty((C,), device=dev)
+    e1 = torch.empty((C,), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _build.lib().lhvi_logpot_leapfrog(
+        x.data_ptr(), p.data_ptr(), inv_mass.data_ptr(), eps.data_ptr(),
+        beta.data_ptr(), _ptr(plan.J), _ptr(plan.h),
+        _ptr(base_mid if use_base else None),
+        _ptr(base_is2 if use_base else None),
+        plan.row_bucket.data_ptr(), plan.bucket_tape.data_ptr(),
+        plan.tape_op.data_ptr(), plan.tape_a.data_ptr(),
+        plan.tape_b.data_ptr(), plan.tape_c.data_ptr(),
+        plan.cidx.data_ptr(), plan.cconst.data_ptr(), plan.prm.data_ptr(),
+        plan.w.data_ptr(), _ptr(dv), plan.csr_ptr.data_ptr(),
+        plan.csr_ent.data_ptr(), xo.data_ptr(), po.data_ptr(),
+        e0.data_ptr(), e1.data_ptr(),
+        C, n, plan.n_active, plan.n_rows, plan.acm, plan.adm, plan.pm,
+        int(n_steps), stream)
+    _build.check(code, "logpot_leapfrog")
+    logpot_leapfrog.launches += 1
+    return xo, po, e0, e1
+
+
+# ``plan="auto"`` resolves through this cache: one plan (one host trace,
+# one set of device tables) per compiled graph, keyed weakly on its meta.
+_PLAN_CACHE: Any = weakref.WeakKeyDictionary()
+
+
+def logpot_plan_cached(fg) -> Optional[LogpotPlan]:
+    if fg.meta is None:
+        return logpot_plan(fg)
+    try:
+        return _PLAN_CACHE[fg.meta]
+    except KeyError:
+        pass
+    plan = logpot_plan(fg)
+    _PLAN_CACHE[fg.meta] = plan
+    return plan
+
+
+def _resolve_plan(fg, plan, x):
+    """``"auto"`` → the cached plan on CUDA tensors, None elsewhere."""
+    if isinstance(plan, str):
+        if plan != "auto":
+            raise ValueError(f"plan must be None, 'auto' or a LogpotPlan: "
+                             f"{plan!r}")
+        return logpot_plan_cached(fg) if x.is_cuda else None
+    return plan
+
+
+def _tempering(fg, dev, beta, base_mid, base_inv_s2):
+    """(use_base, β, mid, 1/s²) with the untempered defaults filled in."""
     if beta is None:
         beta = torch.ones((), device=dev)
     if base_mid is None:
-        base_mid = torch.zeros((fg.n_cont,), device=dev)
-        base_is2 = torch.zeros((fg.n_cont,), device=dev)
+        zeros = torch.zeros((fg.n_cont,), device=dev)
+        return False, beta, zeros, zeros
+    return True, beta, base_mid, base_inv_s2
+
+
+def _run_plan(route, fg, plan, x, p, xd, inv_mass, eps, n_steps, beta,
+              base_mid, base_inv_s2):
+    if plan.w.device != x.device:
+        raise ValueError(f"the plan's tables are on {plan.w.device}, "
+                         f"the state on {x.device}")
+    use_base, beta, mid, is2 = _tempering(fg, x.device, beta, base_mid,
+                                          base_inv_s2)
+    eps, beta = eps_tensor(eps, x.device), eps_tensor(beta, x.device)
+    x1, p1, e0, e1 = route(plan, x, p, plan.disc_values(xd), inv_mass, eps,
+                           beta, mid, is2, n_steps, use_base)
+    if plan.has_quad:  # match log_prob_cont_batched's constant term
+        e0 = e0 + beta * fg.quad_c
+        e1 = e1 + beta * fg.quad_c
+    return x1, p1, e0, e1
+
+
+def tape_logpot_leapfrog(fg, x, p, xd, inv_mass, eps, n_steps: int,
+                         beta=None, base_mid=None, base_inv_s2=None,
+                         plan=None):
+    """K5's plain twin on any device: :func:`logpot_leapfrog`'s signature
+    and results, the energy and gradient from :func:`tape_energy_grad`
+    (``plan=None`` builds the graph's cached plan)."""
+    plan = logpot_plan_cached(fg) if plan is None else plan
+    return _run_plan(_plan_leapfrog, fg, plan, x, p, xd, inv_mass, eps,
+                     n_steps, beta, base_mid, base_inv_s2)
+
+
+def logpot_leapfrog(fg, x, p, xd, inv_mass, eps, n_steps: int,
+                    beta=None, base_mid=None, base_inv_s2=None, plan=None):
+    """Batched leapfrog on a (possibly tempered) non-quadratic target.
+
+    x, p: [C, n_cont]; xd: [C, n_disc] (held fixed); eps and beta may be
+    floats or 0-d tensors (read on the device, no host sync). Returns
+    ``(x1, p1, lp0, lp1)`` where lp is the log-density of the tempered
+    target at the start and end points, up to an x-independent constant
+    (the same constant on every route: ``β·quad_c`` is added to the
+    plan's energies, as the reference's ``logpot.py:519-521``).
+
+    ``plan=None`` runs the autograd path; ``plan="auto"`` or a
+    :func:`logpot_plan` result runs K5 on CUDA tensors
+    (``logpot_leapfrog.launches`` counts its launches) and its plain twin
+    on CPU tensors.
+    """
+    plan = _resolve_plan(fg, plan, x)
+    if plan is None:
+        use_base, beta, mid, is2 = _tempering(fg, x.device, beta, base_mid,
+                                              base_inv_s2)
+        return _torch_logpot_leapfrog(fg, x, p, xd, inv_mass, eps, beta,
+                                      mid, is2, n_steps, use_base)
+    if x.is_cuda:
+        route = _cuda_logpot_leapfrog
+    elif x.device.type == "cpu":
+        route = _plan_leapfrog
     else:
-        base_is2 = base_inv_s2
-    return _torch_logpot_leapfrog(fg, x, p, xd, inv_mass, eps, beta,
-                                  base_mid, base_is2, n_steps, use_base)
+        raise NotImplementedError(f"logpot_leapfrog: no route for {x.device}")
+    return _run_plan(route, fg, plan, x, p, xd, inv_mass, eps, n_steps,
+                     beta, base_mid, base_inv_s2)
+
+
+logpot_leapfrog.launches = 0

@@ -43,6 +43,8 @@ class Potential:
       - ``param_arrays()``: dict of numpy arrays (stacked along axis 0 by the
         compiler across the bucket).
       - ``kernel(pattern)``: the batched log-potential function.
+      - ``kernel_planar(pattern)`` (optional): the factor-minor form the
+        fused log-potential kernel traces.
       - ``symmetric``: True if invariant to argument permutation (read by
         the lifting pass).
     """
@@ -57,3 +59,19 @@ class Potential:
 
     def kernel(self, pattern: Tuple[bool, ...]) -> Callable:
         raise NotImplementedError
+
+    def kernel_planar(self, pattern: Tuple[bool, ...]):
+        """Optional factor-minor kernel: ``log_pot(params, slots)`` where
+        ``slots`` is a list of same-shaped ``[..., F]`` tensors, one per
+        argument in order (continuous values / discrete domain values),
+        and every ``params`` leaf is 2D ``[k, F]`` — the per-factor
+        components flattened row-major into ``k`` rows, factors on the
+        minor axis, read with static row slices (``leaf[i:i+1]``).
+
+        The fused log-potential kernel (K5, ``ops/logpot.py``) traces this
+        function once on the host into a tape (``ops/logpot_tape.py``), so
+        it must be straight-line arithmetic over its arguments. Return
+        None (default) to opt out: such buckets keep the model on the
+        autograd path.
+        """
+        return None

@@ -3,7 +3,10 @@
 ``TablePotential``, ``GaussianPotential``, ``LinearGaussianPotential``,
 ``QuadraticPotential``, ``XYPotential``, ``ImageNodePotential``,
 ``ImageEdgePotential``, ``MLNPotential``: the same host-side parameters
-and bucket keys as the reference, with torch kernels. All kernels are
+and bucket keys as the reference, with torch kernels. Every type with
+continuous arguments also has the reference's factor-minor
+``kernel_planar`` (see ``potentials.base``), which the fused
+log-potential kernel traces. All kernels are
 log-space and batched (see ``potentials.base``). Parameters are stored
 f32; quadratic forms accumulate in f32.
 """
@@ -73,6 +76,20 @@ class GaussianPotential(Potential):
 
         return log_pot
 
+    def kernel_planar(self, pattern):
+        a = self.mu.shape[0]
+
+        def log_pot(params, slots):
+            d = [slots[i] - params["mu"][i : i + 1] for i in range(a)]
+            quad = 0.0
+            for i in range(a):  # arity is tiny: unrolled
+                for j in range(a):
+                    pij = params["prec"][i * a + j : i * a + j + 1]
+                    quad = quad + pij * d[i] * d[j]
+            return params["log_coef"][0:1] - 0.5 * quad
+
+        return log_pot
+
 
 class LinearGaussianPotential(Potential):
     """Pairwise linear-Gaussian coupling: ``log φ(x,y) = −(y − coeff·x)² / (2σ²)``."""
@@ -96,6 +113,13 @@ class LinearGaussianPotential(Potential):
         def log_pot(params, xc, xdi, xdv):
             r = xc[..., 1] - params["coeff"] * xc[..., 0]
             return -(r * r) / (2.0 * params["sig"])
+
+        return log_pot
+
+    def kernel_planar(self, pattern):
+        def log_pot(params, slots):
+            r = slots[1] - params["coeff"][0:1] * slots[0]
+            return -(r * r) / (2.0 * params["sig"][0:1])
 
         return log_pot
 
@@ -124,6 +148,20 @@ class QuadraticPotential(Potential):
 
         return log_pot
 
+    def kernel_planar(self, pattern):
+        a = self.b.shape[0]
+
+        def log_pot(params, slots):
+            out = params["c"][0:1] + 0.0 * slots[0]
+            for i in range(a):
+                out = out + params["b"][i : i + 1] * slots[i]
+                for j in range(a):
+                    aij = params["A"][i * a + j : i * a + j + 1]
+                    out = out + aij * slots[i] * slots[j]
+            return out
+
+        return log_pot
+
 
 class XYPotential(Potential):
     """Product coupling ``log φ(x,y) = coeff · x · y / sig`` (attractive for
@@ -144,6 +182,13 @@ class XYPotential(Potential):
     def kernel(self, pattern):
         def log_pot(params, xc, xdi, xdv):
             return params["coeff"] * xc[..., 0] * xc[..., 1] / params["sig"]
+
+        return log_pot
+
+    def kernel_planar(self, pattern):
+        def log_pot(params, slots):
+            return (params["coeff"][0:1] * slots[0] * slots[1]
+                    / params["sig"][0:1])
 
         return log_pot
 
@@ -231,6 +276,17 @@ class MLNPotential(Potential):
 
         return log_pot
 
+    def kernel_planar(self, pattern):
+        formula, hard = self.formula, self.hard
+
+        def log_pot(params, slots):
+            truth = formula(list(slots))
+            if hard:
+                return params["w"][0:1] * (truth - 1.0)
+            return params["w"][0:1] * truth
+
+        return log_pot
+
 
 class ImageNodePotential(Potential):
     """Unary image potential tying a latent pixel to its observation:
@@ -251,6 +307,13 @@ class ImageNodePotential(Potential):
         def log_pot(params, xc, xdi, xdv):
             d = xc[..., 0] - xc[..., 1]
             return -(d * d) / (2.0 * params["alpha"])
+
+        return log_pot
+
+    def kernel_planar(self, pattern):
+        def log_pot(params, slots):
+            d = slots[0] - slots[1]
+            return -(d * d) / (2.0 * params["alpha"][0:1])
 
         return log_pot
 
@@ -275,6 +338,13 @@ class ImageEdgePotential(Potential):
         def log_pot(params, xc, xdi, xdv):
             d = torch.abs(xc[..., 0] - xc[..., 1])
             return -torch.minimum(d, params["cap"]) / params["scale"]
+
+        return log_pot
+
+    def kernel_planar(self, pattern):
+        def log_pot(params, slots):
+            d = torch.abs(slots[0] - slots[1])
+            return -torch.minimum(d, params["cap"][0:1]) / params["scale"][0:1]
 
         return log_pot
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lhvi_tpu_torch.engines.hmc import HMCState
+from lhvi_tpu_torch.engines.hmc import HMCState, _StreamDiagDisc
 from lhvi_tpu_torch.engines.smc import SMCState
 from lhvi_tpu_torch.fg.compile import CompiledFG, _tensor
 
@@ -75,8 +75,9 @@ def hmc_state_from_numpy(state_dict: dict, device) -> HMCState:
     """The port's ``HMCState`` from a reference state's fields (e.g.
     ``{k: np.asarray(v) for k, v in state._asdict().items()}``).
 
-    Reads the fields the port's state has (positions, discrete state,
-    dual-averaging and Welford accumulators, inverse mass); the
+    Reads the fields the port's state has: continuous positions ``xc``,
+    the discrete index state ``xd`` (int64, the port's index type),
+    dual-averaging and Welford accumulators and the inverse mass. The
     reference's mode-swap accumulators have no counterpart in this slice
     and are not read. Floats become f32 and integers int64.
     """
@@ -110,3 +111,14 @@ def smc_state_from_numpy(state_dict: dict, device) -> SMCState:
             a = a.astype(np.float32)
         out[k] = _tensor(a, device)
     return SMCState(**out)
+
+
+def stream_diag_disc_from_numpy(acc: dict, device) -> _StreamDiagDisc:
+    """The port's streamed discrete-R̂ accumulators (``_StreamDiagDisc``)
+    from a reference ``_StreamDiagDisc``'s fields, as f32 tensors."""
+    missing = [k for k in _StreamDiagDisc._fields if k not in acc]
+    if missing:
+        raise KeyError(f"stream_diag_disc_from_numpy: missing fields {missing}")
+    return _StreamDiagDisc(*(
+        _tensor(np.asarray(acc[k], np.float32), torch.device(device))
+        for k in _StreamDiagDisc._fields))

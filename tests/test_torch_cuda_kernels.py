@@ -330,3 +330,127 @@ def test_nuts_and_smc_steps_never_sync_with_the_host(dev):
     assert (nt.nuts_trajectory.launches + rs.weight_pipeline.launches
             == launches + 4)
     assert torch.isfinite(state.xc).all() and torch.isfinite(st.xc).all()
+
+
+def _logpot_model(name):
+    """Small non-quadratic models that reach K5's branches: discrete slots
+    (robot), no quadratic form (denoise), J past shared memory (robot with
+    150 latent depths), exp and division (friends), tied and observed
+    slots with non-index values."""
+    from lhvi_tpu_torch.models.image import denoise_grid
+    from lhvi_tpu_torch.models.relational import (
+        friends_smokers,
+        robot_map,
+        robot_scan_evidence,
+    )
+    from lhvi_tpu_torch.models.toy import hybrid_chain
+    from lhvi_tpu_torch.potentials import MLNPotential
+    from lhvi_tpu_torch.relational.data import load_evidence
+
+    if name.startswith("robot"):
+        n, miss = (10, 7) if name == "robot10" else (150, 1)
+        text, _ = robot_scan_evidence(n, seed=0, depth_miss_every=miss)
+        return robot_map(n, evidence=load_evidence(text)).ground()[0]
+    if name == "denoise6":
+        return denoise_grid(6, 6, seed=0)[0]
+    if name == "hybrid_chain":
+        return hybrid_chain()[0]
+    if name == "friends4":  # exp and division in its formula
+        rg = friends_smokers(n_people=4, hybrid=True)
+        rg.observe("smokes", ("p0",), 1)
+        return rg.ground()[0]
+    s = lt.RV(lt.Domain([-1.0, 1.0]), name="s")
+    x = lt.RV(lt.Domain([-4.0, 4.0], continuous=True), name="x")
+    e = lt.RV(lt.Domain([-4.0, 4.0], continuous=True), name="e")
+    e.value = 0.7
+    return lt.Graph([s, x, e], [
+        lt.F(MLNPotential(lambda a: -(a[0] * a[1]) / 4.0 - a[0] ** 2 / 8.0,
+                          w=0.9, formula_name="tied"), [x, x]),
+        lt.F(MLNPotential(lambda a: -((a[1] - a[0]) ** 2) / 2.0
+                          - torch.abs(a[1] - a[2]) / 2.0, w=1.1,
+                          formula_name="pull"), [s, x, e]),
+    ])
+
+
+@pytest.mark.parametrize("model", ["robot10", "robot150", "denoise6",
+                                   "hybrid_chain", "friends4", "tied"])
+@pytest.mark.parametrize("C,n_steps", [(1, 0), (13, 1), (300, 5)])
+@pytest.mark.parametrize("tempered", [False, True])
+def test_logpot_leapfrog_kernel_matches_tape(dev, model, C, n_steps,
+                                             tempered):
+    """K5 against its plain twin (the tape evaluator over
+    ``tape_energy_grad``) on the same momenta. Tolerances: x1, p1 within
+    1e-4·max(1,|plain|), E0, E1 within 2e-4·max(1,|plain|)
+    (tests/test_logpot_kernel.py's bound; f32 sums in another order)."""
+    from lhvi_tpu_torch.ops import logpot
+
+    fg = lt.compile_graph(_logpot_model(model), dev)
+    plan = logpot.logpot_plan(fg)
+    assert plan is not None
+    n = fg.n_cont
+    g = torch.Generator(dev).manual_seed(C + n_steps)
+    lo, hi = fg.cont_lo, fg.cont_hi
+    x = lo + (hi - lo) * torch.rand((C, n), generator=g, device=dev)
+    p = torch.randn((C, n), generator=g, device=dev)
+    sizes = torch.as_tensor(fg.meta.np_global["disc_sizes"], device=dev)
+    xd = (torch.rand((C, fg.n_disc), generator=g, device=dev)
+          * sizes[None]).long()
+    im = 0.5 + torch.rand((n,), generator=g, device=dev)
+    kw = {}
+    if tempered:
+        kw = dict(beta=torch.full((), 0.3, device=dev),
+                  base_mid=0.5 * (lo + hi),
+                  base_inv_s2=torch.full((n,), 0.25, device=dev))
+    args = (fg, x, p, xd, im, torch.full((), 0.04, device=dev), n_steps)
+    before = logpot.logpot_leapfrog.launches
+    got = logpot.logpot_leapfrog(*args, plan=plan, **kw)
+    want = logpot.tape_logpot_leapfrog(*args, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert logpot.logpot_leapfrog.launches == before + 1
+    assert _rel(got[0], want[0]) < 1e-4 and _rel(got[1], want[1]) < 1e-4
+    assert _rel(got[2], want[2]) < 2e-4 and _rel(got[3], want[3]) < 2e-4
+    if n_steps == 0:
+        assert torch.equal(got[0], x) and torch.equal(got[2], got[3])
+
+
+def test_logpot_leapfrog_kernel_rejects_bad_input(dev):
+    from lhvi_tpu_torch.ops import logpot
+
+    fg = lt.compile_graph(_logpot_model("robot10"), dev)
+    plan = logpot.logpot_plan(fg)
+    x = torch.zeros((4, fg.n_cont), device=dev)
+    xd = torch.zeros((4, fg.n_disc), dtype=torch.int64, device=dev)
+    im = torch.ones(fg.n_cont, device=dev)
+    with pytest.raises(TypeError):
+        logpot.logpot_leapfrog(fg, x.double(), x.double(), xd, im, 0.1, 2,
+                               plan=plan)
+    with pytest.raises(ValueError):
+        logpot.logpot_leapfrog(fg, x, x[:2], xd, im, 0.1, 2, plan=plan)
+    with pytest.raises(ValueError):  # the plan's tables live on the CPU
+        logpot.logpot_leapfrog(fg, x, x, xd, im, 0.1, 2,
+                               plan=logpot.logpot_plan(lt.compile_graph(
+                                   _logpot_model("robot10"), "cpu")))
+
+
+def test_hybrid_transitions_never_sync_with_the_host(dev):
+    """HMC-within-Gibbs on the robot map with ``fused_logpot=True``: the
+    planned Gibbs sweep and the K5 proposal read nothing back (after a
+    first transition that builds and uploads the plan)."""
+    from lhvi_tpu_torch.engines import hmc
+    from lhvi_tpu_torch.ops import logpot
+
+    fg = lt.compile_graph(_logpot_model("robot10"), dev)
+    cfg = hmc.HMCConfig(n_leapfrog=4, init_step_size=0.05, fused_logpot=True)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = hmc.init_hmc_state(fg, gen, cfg, 256)
+    state, _ = hmc.hmc_transition(fg, cfg, state, gen, True)
+    before = logpot.logpot_leapfrog.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, _ = hmc.hmc_transition(fg, cfg, state, gen, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert logpot.logpot_leapfrog.launches == before + 2
+    assert torch.isfinite(state.xc).all()

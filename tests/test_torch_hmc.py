@@ -289,17 +289,19 @@ def test_accept_rate_under_thin_keeps_the_last_transition():
 
 
 def test_out_of_slice_paths_raise():
-    g, _ = toy.hybrid_chain()
-    fg = lt.compile_graph(g, "cpu")
+    """The mode-swap move is the one HMC option still out of the port
+    (Slice 7); hybrid models and ``fused_logpot`` run (the flag is
+    ignored on pure-quadratic targets, as in the reference)."""
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="Slice 2"):
-        hmc.run_hmc(fg, gen, n_chains=2, n_warmup=2, n_samples=2)
-    g, _ = toy.gaussian_grid(3, 3, seed=0)
-    fg = lt.compile_graph(g, "cpu")
-    for cfg, slice_ in ((hmc.HMCConfig(mode_swap=True), "Slice 7"),
-                        (hmc.HMCConfig(fused_logpot=True), "Slice 8")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            hmc.run_hmc(fg, gen, cfg, n_chains=2, n_warmup=2, n_samples=2)
+    for g in (toy.hybrid_chain()[0], toy.gaussian_grid(3, 3, seed=0)[0]):
+        fg = lt.compile_graph(g, "cpu")
+        with pytest.raises(NotImplementedError, match="Slice 7"):
+            hmc.run_hmc(fg, gen, hmc.HMCConfig(mode_swap=True), n_chains=2,
+                        n_warmup=2, n_samples=2)
+        s_xc, s_xd, _ = hmc.run_hmc(fg, gen, hmc.HMCConfig(fused_logpot=True),
+                                    n_chains=2, n_warmup=2, n_samples=2)
+        assert s_xc.shape == (2, 2, fg.n_cont)
+        assert s_xd.shape == (2, 2, fg.n_disc)
 
 
 def test_port_imports_without_jax():

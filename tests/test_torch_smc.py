@@ -107,10 +107,16 @@ def test_logpot_leapfrog_matches_reference():
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-5,
                                    atol=1e-5 * np.abs(b).max(), err_msg=name)
-    with pytest.raises(NotImplementedError, match="Slice 8"):
-        logpot.logpot_leapfrog(fg, torch.from_numpy(x), torch.from_numpy(p),
-                               None, torch.from_numpy(ones), 0.3, 5,
-                               plan="auto")
+    # plan="auto" resolves to the autograd path on CPU tensors (and a
+    # pure-quadratic graph has no fused-kernel plan at all)
+    assert logpot.logpot_plan(fg) is None
+    auto = logpot.logpot_leapfrog(
+        fg, torch.from_numpy(x), torch.from_numpy(p),
+        torch.zeros((C, 0), dtype=torch.int64), torch.from_numpy(ones), 0.3,
+        5, beta=torch.tensor(0.4), base_mid=torch.from_numpy(mid),
+        base_inv_s2=torch.from_numpy(is2), plan="auto")
+    for a, b in zip(auto, got):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("beta", [0.002, 0.6])
@@ -254,7 +260,6 @@ def test_out_of_slice_paths_raise():
     fg = lt.compile_graph(g, "cpu")
     for cfg, kw, slice_ in (
             (smc.SMCConfig(mode_swap=True), {}, "Slice 7"),
-            (smc.SMCConfig(fused_logpot=True), {}, "Slice 8"),
             (smc.SMCConfig(), {"shard": object()}, "Slice 10")):
         with pytest.raises(NotImplementedError, match=slice_):
             smc.run_smc(fg, gen, cfg, **kw)

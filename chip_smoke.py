@@ -455,8 +455,8 @@ def robot_fg(dev, n_segments=100):
 
 
 def denoise_fg(dev, rows=11):
-    """The largest square denoising grid the fused-kernel plan admits
-    (12×12 is over the reference's 8 MB footprint gate)."""
+    """A square denoising grid; 11×11 is the largest the reference's 8 MB
+    TPU footprint gate admits (K5's own plan takes larger ones)."""
     from lhvi_tpu_torch import compile_graph
     from lhvi_tpu_torch.models.image import denoise_grid
 
@@ -466,7 +466,9 @@ def denoise_fg(dev, rows=11):
 def phase_k5(dev, C_robot=16384, C_denoise=4096):
     """K5 against both plain versions (autograd over
     ``log_prob_cont_batched``, and the tape twin ``tape_energy_grad``) on
-    the same inputs and momenta, at the shapes the main path gives it."""
+    the same inputs and momenta, at the shapes the main path gives it,
+    and on a grid past the reference's gate, all through
+    ``plan="auto"``."""
     import torch
 
     from lhvi_tpu_torch.ops import logpot
@@ -478,12 +480,18 @@ def phase_k5(dev, C_robot=16384, C_denoise=4096):
         f"versions in f32 (autograd) and double (tape))")
     fg_r, _ = robot_fg(dev)
     fg_d = denoise_fg(dev)
+    fg_d16 = denoise_fg(dev, 16)
+    if logpot.logpot_plan(fg_d16) is not None:
+        raise AssertionError("denoise16x16 is expected past the reference's "
+                             "gate")
     cases = (("robot100", fg_r, C_robot, 8, 0.05, None),
              ("robot100 tempered", fg_r, C_robot, 8, 0.05, 0.3),
-             ("denoise11x11", fg_d, C_denoise, 5, 0.03, None))
+             ("denoise11x11", fg_d, C_denoise, 5, 0.03, None),
+             ("denoise16x16 (past the reference's gate)", fg_d16, C_denoise,
+              5, 0.03, None))
     record = None
     for name, fg, C, steps, eps, beta in cases:
-        plan = logpot.logpot_plan_cached(fg)
+        plan = logpot.logpot_plan_cached(fg)  # what plan="auto" runs
         if plan is None:
             raise AssertionError(f"{name}: no fused-kernel plan")
         n = fg.n_cont
@@ -501,7 +509,10 @@ def phase_k5(dev, C_robot=16384, C_denoise=4096):
                       base_mid=0.5 * (lo + hi),
                       base_inv_s2=torch.full((n,), 1.0 / 2.0**2, device=dev))
         args = (fg, x, p, xd, im, torch.full((), eps, device=dev), steps)
-        got = logpot.logpot_leapfrog(*args, plan=plan, **kw)
+        before = logpot.logpot_leapfrog.launches
+        got = logpot.logpot_leapfrog(*args, plan="auto", **kw)
+        if logpot.logpot_leapfrog.launches != before + 1:
+            raise AssertionError(f"{name}: plan='auto' did not launch K5")
         plains = {"autograd": logpot.logpot_leapfrog(*args, plan=None, **kw),
                   "tape": logpot.tape_logpot_leapfrog(*args, plan=plan, **kw)}
         torch.cuda.synchronize()

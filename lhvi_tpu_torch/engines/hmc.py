@@ -55,7 +55,9 @@ class HMCConfig:
     gibbs_max_colors: int = 0
     adapt_mass: bool = True
     jitter: float = 1.0
-    # fused log-potential kernel for non-quadratic targets (K5)
+    # fused log-potential kernel for non-quadratic targets (K5; on CUDA
+    # tensors it raises where K5 cannot run the graph, see
+    # ops.logpot.kernel_plan; on CPU tensors the autograd path runs)
     fused_logpot: bool = False
     # the reference's lax.scan unroll factor of the planned sweep; a
     # Python loop has no counterpart, so it is accepted and ignored

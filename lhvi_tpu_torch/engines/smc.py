@@ -54,6 +54,7 @@ class SMCConfig:
     # fused move, as in the reference
     quad_moves: bool = False
     # fused log-potential kernel (K5) for non-quadratic tempered moves
+    # (as HMCConfig.fused_logpot)
     fused_logpot: bool = False
     # CESS-targeted β schedule (``n_temps`` is the cap) plus deadband
     # Robbins–Monro adaptation of the rejuvenation step size

@@ -20,11 +20,16 @@ routes compute the same thing:
 - a plan on CPU tensors: the same trajectory with the energy and gradient
   from :func:`tape_energy_grad`, K5's plain twin.
 
-``plan="auto"`` resolves to the cached plan on CUDA tensors and to
-``None`` on CPU tensors, as the reference resolves it off the TPU. The
-plan keeps the reference's eligibility rules (:func:`logpot_plan`), so
-the same models are eligible; a formula the tracer cannot record makes
-it raise.
+Two plans. :func:`logpot_plan` keeps the reference's eligibility rules
+(its TPU VMEM estimate included), so the same models are eligible there,
+and returns None where the reference's does. :func:`kernel_plan` is the
+plan K5 runs: it is held to K5's own limits (a dense quadratic form, a
+planar kernel per bucket, one chain's state within a block's shared
+memory) and RAISES where K5 cannot run the graph. ``plan="auto"``
+resolves to the cached kernel plan on CUDA tensors, so a model never
+leaves K5 silently on the card, and to None (autograd) on CPU tensors,
+as the reference resolves it off the TPU. A formula the tracer cannot
+record makes either plan raise.
 
 The plan's tables are gathers, not the reference's one-hot ``x @ G``
 matmuls (a Mosaic workaround): per factor row and continuous slot, the
@@ -36,7 +41,7 @@ run gives the same bits. Padded factor rows (scale 0) are dropped.
 from __future__ import annotations
 
 import weakref
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -52,6 +57,8 @@ from lhvi_tpu_torch.ops.logpot_tape import (
 )
 
 _LANE = 128  # the reference's footprint estimate counts 128-lane padding
+# K5's shared memory per block (csrc/logpot_leapfrog.cu, kSmemLimit)
+K5_SMEM_LIMIT = 227 * 1024
 
 
 def _round_up(x: int, m: int) -> int:
@@ -93,13 +100,10 @@ class _BucketPlan:
     """One xc-dependent bucket in the plan: its tape and its real rows'
     positions in the plan's row space."""
 
-    def __init__(self, bucket_index: int, pattern, tape: Tape,
-                 rows: torch.Tensor, src_rows: np.ndarray):
-        self.bucket_index = bucket_index
+    def __init__(self, pattern, tape: Tape, rows: torch.Tensor):
         self.pattern = pattern
         self.tape = tape
         self.rows = rows  # i64 [R_b] plan rows of this bucket's factors
-        self.src_rows = src_rows  # their rows in the bucket's tables
 
 
 class LogpotPlan:
@@ -116,11 +120,9 @@ class LogpotPlan:
     slot values are gathered per proposal by :meth:`disc_values`.
     """
 
-    def __init__(self, fg, est_bytes: int, buckets: List[_BucketPlan],
-                 tables: dict):
+    def __init__(self, fg, buckets: List[_BucketPlan], tables: dict):
         self.n_cont = fg.n_cont
         self.has_quad = bool(fg.has_quad)
-        self.est_bytes = est_bytes  # the reference's VMEM estimate (gate)
         self.buckets = buckets
         for k, v in tables.items():
             setattr(self, k, v)
@@ -173,20 +175,67 @@ def _footprint(fg, idx, block_chains: int) -> Optional[int]:
     return total + 4 * block_chains * n_pad * 4
 
 
+def _k5_smem_one_chain(n: int, n_active: int, acm: int) -> int:
+    """Bytes of shared memory K5 needs for a tile of one chain: x, p, g
+    and the quadratic terms, the active rows' w·lp and slot adjoints, the
+    evidence rows' energy (a double) and the launch's 16 bytes of slack."""
+    return 16 + 8 + 4 * (4 * n + n_active * (1 + acm))
+
+
 def logpot_plan(fg, max_bytes: int = 8 << 20,
                 block_chains: int = 256) -> Optional[LogpotPlan]:
-    """Build the fused-kernel plan, or None where the reference's is None:
-    no xc-dependent buckets, an ELL-sparse quadratic form, a bucket
-    without a planar kernel, or the reference's footprint estimate above
-    ``max_bytes``. Raises ``NotImplementedError`` when an eligible
-    bucket's planar function cannot be traced into a tape."""
+    """The plan under the reference's eligibility rules, or None where the
+    reference's is None: no xc-dependent buckets, an ELL-sparse quadratic
+    form, a bucket without a planar kernel, or the reference's TPU
+    footprint estimate above ``max_bytes``. Raises
+    ``NotImplementedError`` when an eligible bucket's planar function
+    cannot be traced into a tape. K5 runs :func:`kernel_plan`."""
     idx = fg.cont_bucket_idx
     if not idx or fg.n_cont == 0 or fg.quad_sparse:
         return None
     est = _footprint(fg, idx, block_chains)
     if est is None or est > max_bytes:
         return None
+    return _build_plan(fg, idx)
 
+
+def kernel_plan(fg) -> Optional[LogpotPlan]:
+    """The plan K5 runs, held to K5's own limits rather than the
+    reference's TPU footprint gate. None only when the graph has no
+    continuous latent (nothing moves). Raises ``NotImplementedError``
+    where K5 cannot run the graph: an ELL-sparse quadratic form (K5 reads
+    a dense J), no factor reading a continuous latent, a bucket without a
+    planar kernel or with a formula the tracer cannot record, or one
+    chain's state past a block's shared memory."""
+    if fg.n_cont == 0:
+        return None
+    if fg.quad_sparse:
+        raise NotImplementedError(
+            "K5 reads a dense quadratic form; this graph's is ELL-sparse "
+            "(more continuous latents than compile_graph's quad_max_n)")
+    idx = fg.cont_bucket_idx
+    if not idx:
+        raise NotImplementedError(
+            "K5: no factor outside the quadratic form reads a continuous "
+            "latent")
+    for i in idx:
+        b = fg.buckets[i]
+        if b.kernel_planar is None:
+            raise NotImplementedError(
+                f"K5: bucket {i} (pattern {b.pattern}, {b.n_factors} "
+                f"factors) has no planar kernel to trace")
+    plan = _build_plan(fg, idx)
+    need = _k5_smem_one_chain(plan.n_cont, plan.n_active, plan.acm)
+    if need > K5_SMEM_LIMIT:
+        raise NotImplementedError(
+            f"K5 needs {need} bytes of shared memory for one chain "
+            f"({plan.n_cont} latents, {plan.n_active} factor rows on them); "
+            f"a block has {K5_SMEM_LIMIT}")
+    return plan
+
+
+def _build_plan(fg, idx) -> LogpotPlan:
+    """Trace the buckets ``idx`` and lay out the plan's tables."""
     dev = fg.device
     n = fg.n_cont
     traced = []  # (bucket index, tape, real rows, param table, np bucket)
@@ -223,11 +272,9 @@ def logpot_plan(fg, max_bytes: int = 8 << 20,
     vb = max([t[4]["disc_vals"].shape[-1] for t in traced] + [1])
     dtab = np.zeros((R, max(adm, 1), vb), np.float32)
     bucket_rows: List[List[int]] = [[] for _ in traced]
-    bucket_src: List[List[int]] = [[] for _ in traced]
     for k, (bi, r) in enumerate(order):
         _, _, _, prm, np_b = traced[bi]
         bucket_rows[bi].append(k)
-        bucket_src[bi].append(r)
         row_bucket[k] = bi
         m = np_b["cont_mask"][r] > 0
         ac = m.shape[0]
@@ -283,34 +330,11 @@ def logpot_plan(fg, max_bytes: int = 8 << 20,
     else:
         tables["J"] = tables["h"] = None
     plans = [
-        _BucketPlan(i, fg.buckets[i].pattern, tape,
-                    t(np.asarray(bucket_rows[bi], np.int64)),
-                    np.asarray(bucket_src[bi], np.int64))
+        _BucketPlan(fg.buckets[i].pattern, tape,
+                    t(np.asarray(bucket_rows[bi], np.int64)))
         for bi, (i, tape, _, _, _) in enumerate(traced)
     ]
-    return LogpotPlan(fg, est, plans, tables)
-
-
-def disc_slot_values(fg, xd: torch.Tensor) -> List[Tuple[torch.Tensor, ...]]:
-    """Per xc-dependent bucket, the tuple of per-disc-slot value tensors
-    ``[C, n_f]`` (original slot order), as the reference's; observed slots
-    read their evidence index through the slot's value table."""
-    out = []
-    for i in fg.cont_bucket_idx:
-        b = fg.buckets[i]
-        if b.ad == 0:
-            out.append(())
-            continue
-        C = xd.shape[0]
-        if xd.shape[1]:
-            xdi = torch.where(b.disc_mask[None] > 0, xd[:, b.disc_idx],
-                              b.disc_const[None])
-        else:
-            xdi = b.disc_const[None].expand((C,) + b.disc_const.shape)
-        xdv = torch.gather(b.disc_vals[None].expand((C,) + b.disc_vals.shape),
-                           3, xdi[..., None])[..., 0]
-        out.append(tuple(xdv[:, :, d] for d in range(b.ad)))
-    return out
+    return LogpotPlan(fg, plans, tables)
 
 
 def tape_energy_grad(plan: LogpotPlan, x: torch.Tensor, dv):
@@ -409,25 +433,29 @@ def _cuda_logpot_leapfrog(plan, x, p, dv, inv_mass, eps, beta, base_mid,
     return xo, po, e0, e1
 
 
-# ``plan="auto"`` resolves through this cache: one plan (one host trace,
-# one set of device tables) per compiled graph, keyed weakly on its meta.
+# ``plan="auto"`` resolves through this cache: one kernel plan (one host
+# trace, one set of device tables) per compiled graph, keyed weakly on its
+# meta.
 _PLAN_CACHE: Any = weakref.WeakKeyDictionary()
 
 
 def logpot_plan_cached(fg) -> Optional[LogpotPlan]:
+    """:func:`kernel_plan`, built once per compiled graph (it raises, and
+    caches nothing, where K5 cannot run the graph)."""
     if fg.meta is None:
-        return logpot_plan(fg)
+        return kernel_plan(fg)
     try:
         return _PLAN_CACHE[fg.meta]
     except KeyError:
         pass
-    plan = logpot_plan(fg)
+    plan = kernel_plan(fg)
     _PLAN_CACHE[fg.meta] = plan
     return plan
 
 
 def _resolve_plan(fg, plan, x):
-    """``"auto"`` → the cached plan on CUDA tensors, None elsewhere."""
+    """``"auto"`` → the cached kernel plan on CUDA tensors, None
+    elsewhere."""
     if isinstance(plan, str):
         if plan != "auto":
             raise ValueError(f"plan must be None, 'auto' or a LogpotPlan: "
@@ -484,10 +512,11 @@ def logpot_leapfrog(fg, x, p, xd, inv_mass, eps, n_steps: int,
     (the same constant on every route: ``β·quad_c`` is added to the
     plan's energies, as the reference's ``logpot.py:519-521``).
 
-    ``plan=None`` runs the autograd path; ``plan="auto"`` or a
-    :func:`logpot_plan` result runs K5 on CUDA tensors
-    (``logpot_leapfrog.launches`` counts its launches) and its plain twin
-    on CPU tensors.
+    ``plan=None`` runs the autograd path; ``plan="auto"`` or a plan runs
+    K5 on CUDA tensors (``logpot_leapfrog.launches`` counts its launches)
+    and its plain twin on CPU tensors. On CUDA tensors ``"auto"`` is
+    :func:`kernel_plan`, which raises where K5 cannot run the graph; on
+    CPU tensors it is the autograd path.
     """
     plan = _resolve_plan(fg, plan, x)
     if plan is None:

@@ -71,7 +71,7 @@ class Potential:
         The fused log-potential kernel (K5, ``ops/logpot.py``) traces this
         function once on the host into a tape (``ops/logpot_tape.py``), so
         it must be straight-line arithmetic over its arguments. Return
-        None (default) to opt out: such buckets keep the model on the
-        autograd path.
+        None (default) to opt out: such a model runs on the autograd
+        path, and K5 (``fused_logpot=True`` on the card) refuses it.
         """
         return None

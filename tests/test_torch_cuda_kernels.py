@@ -334,9 +334,10 @@ def test_nuts_and_smc_steps_never_sync_with_the_host(dev):
 
 def _logpot_model(name):
     """Small non-quadratic models that reach K5's branches: discrete slots
-    (robot), no quadratic form (denoise), J past shared memory (robot with
-    150 latent depths), exp and division (friends), tied and observed
-    slots with non-index values."""
+    (robot), no quadratic form (denoise; 16x16 is past the reference's
+    TPU gate), J past shared memory (robot with 150 latent depths), exp
+    and division (friends), tied and observed slots with non-index
+    values."""
     from lhvi_tpu_torch.models.image import denoise_grid
     from lhvi_tpu_torch.models.relational import (
         friends_smokers,
@@ -351,8 +352,9 @@ def _logpot_model(name):
         n, miss = (10, 7) if name == "robot10" else (150, 1)
         text, _ = robot_scan_evidence(n, seed=0, depth_miss_every=miss)
         return robot_map(n, evidence=load_evidence(text)).ground()[0]
-    if name == "denoise6":
-        return denoise_grid(6, 6, seed=0)[0]
+    if name.startswith("denoise"):
+        rows = int(name[len("denoise"):])
+        return denoise_grid(rows, rows, seed=0)[0]
     if name == "hybrid_chain":
         return hybrid_chain()[0]
     if name == "friends4":  # exp and division in its formula
@@ -373,19 +375,20 @@ def _logpot_model(name):
 
 
 @pytest.mark.parametrize("model", ["robot10", "robot150", "denoise6",
-                                   "hybrid_chain", "friends4", "tied"])
+                                   "denoise16", "hybrid_chain", "friends4",
+                                   "tied"])
 @pytest.mark.parametrize("C,n_steps", [(1, 0), (13, 1), (300, 5)])
 @pytest.mark.parametrize("tempered", [False, True])
 def test_logpot_leapfrog_kernel_matches_tape(dev, model, C, n_steps,
                                              tempered):
-    """K5 against its plain twin (the tape evaluator over
-    ``tape_energy_grad``) on the same momenta. Tolerances: x1, p1 within
-    1e-4·max(1,|plain|), E0, E1 within 2e-4·max(1,|plain|)
+    """K5 through ``plan="auto"`` against its plain twin (the tape
+    evaluator over ``tape_energy_grad``) on the same momenta. Tolerances:
+    x1, p1 within 1e-4·max(1,|plain|), E0, E1 within 2e-4·max(1,|plain|)
     (tests/test_logpot_kernel.py's bound; f32 sums in another order)."""
     from lhvi_tpu_torch.ops import logpot
 
     fg = lt.compile_graph(_logpot_model(model), dev)
-    plan = logpot.logpot_plan(fg)
+    plan = logpot.kernel_plan(fg)
     assert plan is not None
     n = fg.n_cont
     g = torch.Generator(dev).manual_seed(C + n_steps)
@@ -403,7 +406,7 @@ def test_logpot_leapfrog_kernel_matches_tape(dev, model, C, n_steps,
                   base_inv_s2=torch.full((n,), 0.25, device=dev))
     args = (fg, x, p, xd, im, torch.full((), 0.04, device=dev), n_steps)
     before = logpot.logpot_leapfrog.launches
-    got = logpot.logpot_leapfrog(*args, plan=plan, **kw)
+    got = logpot.logpot_leapfrog(*args, plan="auto", **kw)
     want = logpot.tape_logpot_leapfrog(*args, plan=plan, **kw)
     torch.cuda.synchronize()
     assert logpot.logpot_leapfrog.launches == before + 1

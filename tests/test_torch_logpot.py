@@ -13,6 +13,7 @@ another order).
 """
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -190,7 +191,8 @@ def test_plan_is_none_exactly_where_the_reference_is(name, max_bytes):
     got = logpot.logpot_plan(fg, max_bytes=max_bytes)
     assert (got is None) == (want is None), name
     if got is not None:
-        assert got.est_bytes == want.vmem_bytes
+        assert logpot._footprint(fg, fg.cont_bucket_idx,
+                                 256) == want.vmem_bytes
     if name in ("denoise16", "denoise12", "grid6") or max_bytes == 1 << 10:
         assert got is None
 
@@ -203,7 +205,7 @@ def test_plan_is_none_exactly_where_the_reference_is(name, max_bytes):
     (lambda a: a[0].clamp(0.0, 1.0) * a[1], "clamp"),
 ])
 def test_untraceable_formula_raises(formula, match):
-    """A formula outside the tape's op set makes the plan RAISE, naming
+    """A formula outside the tape's op set makes both plans RAISE, naming
     what it met (None would send the model off the kernel silently)."""
     dom = lt.Domain([-2.0, 2.0], continuous=True)
     x, y = lt.RV(dom, name="x"), lt.RV(dom, name="y")
@@ -211,8 +213,9 @@ def test_untraceable_formula_raises(formula, match):
         lt.F(pot.MLNPotential(formula, w=0.5, formula_name="f"), [x, y]),
         lt.F(pot.GaussianPotential([0.0], [[1.0]]), [x])])
     fg = lt.compile_graph(g, "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        logpot.logpot_plan(fg)
+    for make in (logpot.logpot_plan, logpot.kernel_plan):
+        with pytest.raises(NotImplementedError, match=match):
+            make(fg)
 
 
 _OP_FORMULAS = {
@@ -278,23 +281,40 @@ def test_tape_energy_grad_matches_autograd(name):
     np.testing.assert_allclose(g.numpy(), gw.numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _plan_source_rows(fg):
+    """(bucket position, source row) of each plan row, in the layout the
+    plan documents: the rows reading a latent continuous slot bucket by
+    bucket, then the evidence-only rows; padded rows (scale 0) dropped."""
+    act, cst = [], []
+    for bi, i in enumerate(fg.cont_bucket_idx):
+        np_b = fg.meta.np_buckets[i]
+        rows = np.flatnonzero(np_b["scale"] > 0)
+        lat = (np_b["cont_mask"][rows] > 0).any(axis=1)
+        act += [(bi, r) for r in rows[lat]]
+        cst += [(bi, r) for r in rows[~lat]]
+    return act + cst
+
+
 @pytest.mark.parametrize("name", ["robot10", "tied_and_valued"])
 def test_disc_values_follow_the_reference(name):
-    """The plan's per-row discrete slot values equal the reference's
-    ``disc_slot_values`` (observed slots through their value tables), row
-    by row, and the port's ``disc_slot_values`` equals the reference's."""
+    """The plan's per-row discrete slot values (``plan.disc_values``)
+    equal the reference's ``disc_slot_values`` (observed slots through
+    their value tables), row by row."""
     ref, fg = _pair(name)
     _, _, xd = _states(fg, 5, seed=1)
     want = ref_logpot.disc_slot_values(ref, jnp.asarray(xd.astype(np.int32)))
-    got = logpot.disc_slot_values(fg, torch.from_numpy(xd))
     plan = logpot.logpot_plan(fg)
     dv = plan.disc_values(torch.from_numpy(xd))
-    for bp, w_b, g_b in zip(plan.buckets, want, got):
-        assert len(w_b) == len(g_b)
-        for d, (w_s, g_s) in enumerate(zip(w_b, g_b)):
-            np.testing.assert_array_equal(g_s.numpy(), np.asarray(w_s))
+    order = _plan_source_rows(fg)
+    assert len(want) == len(plan.buckets) and len(order) == plan.n_rows
+    for bi, (bp, w_b) in enumerate(zip(plan.buckets, want)):
+        rows = [k for k, (b, _) in enumerate(order) if b == bi]
+        src = [r for b, r in order if b == bi]
+        assert bp.rows.tolist() == rows
+        assert len(w_b) == len(bp.pattern) - sum(bp.pattern)
+        for d, w_s in enumerate(w_b):
             np.testing.assert_array_equal(dv[:, bp.rows, d].numpy(),
-                                          np.asarray(w_s)[:, bp.src_rows])
+                                          np.asarray(w_s)[:, src])
 
 
 @pytest.mark.parametrize("name,tempered,C", [
@@ -379,3 +399,118 @@ def test_smc_fused_logpot_takes_the_plan_path(monkeypatch):
         assert (len(calls) > n0) == fused
         assert np.all(np.isfinite(lz[fused]))
     assert abs(np.mean(lz[True]) - np.mean(lz[False])) < 3.7, lz
+
+
+def _ell_chain():
+    """A Gaussian chain of six latents in the ELL form, plus an MLN
+    factor outside the quadratic form."""
+    dom = lt.Domain([-3.0, 3.0], continuous=True)
+    xs = [lt.RV(dom, name=f"x{i}") for i in range(6)]
+    fs = [lt.F(pot.LinearGaussianPotential(coeff=0.7, sig=1.3), [a, b])
+          for a, b in zip(xs, xs[1:])]
+    fs += [lt.F(pot.GaussianPotential([0.0], [[1.0]]), [xs[0]]),
+           lt.F(pot.MLNPotential(lambda a: -(a[0] - 1.0) ** 2 / 2.0, w=0.8,
+                                 formula_name="pull"), [xs[3]])]
+    fg = lt.compile_graph(lt.Graph(xs, fs), "cpu", quad_max_n=4)
+    assert fg.quad_sparse and not fg.cont_pure_quad
+    return fg
+
+
+class _NoPlanar(pot.MLNPotential):
+    def kernel_planar(self, pattern):
+        return None
+
+
+def _no_planar():
+    dom = lt.Domain([-2.0, 2.0], continuous=True)
+    x, y = lt.RV(dom, name="x"), lt.RV(dom, name="y")
+    return lt.compile_graph(lt.Graph([x, y], [
+        lt.F(_NoPlanar(lambda a: -(a[0] - a[1]) ** 2, w=0.5,
+                       formula_name="f"), [x, y])]), "cpu")
+
+
+@pytest.mark.parametrize("name", ["robot24", "denoise6", "denoise11",
+                                  "tied_and_valued"])
+def test_kernel_plan_equals_the_reference_gated_plan(name):
+    """Where the reference's gate admits a graph, K5's own plan holds the
+    same tables and tapes."""
+    _, fg = _pair(name)
+    a, b = logpot.logpot_plan(fg), logpot.kernel_plan(fg)
+    assert a is not None and b is not None
+    assert (a.n_active, a.acm, a.adm, a.pm) == (b.n_active, b.acm, b.adm, b.pm)
+    for k in ("row_bucket", "bucket_tape", "tape_op", "tape_a", "tape_b",
+              "tape_c", "cidx", "cconst", "prm", "w", "csr_ptr", "csr_ent",
+              "dvar", "dlat", "dconst", "dtab"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), (name, k)
+    assert [bp.tape for bp in a.buckets] == [bp.tape for bp in b.buckets]
+
+
+@pytest.mark.parametrize("name,tempered", [("denoise12", False),
+                                           ("denoise16", True)])
+def test_kernel_plan_past_the_reference_gate(name, tempered):
+    """Grids over the reference's 8 MB TPU estimate fit K5's shared
+    memory: K5's plan exists there, and one leapfrog through its CPU twin
+    equals the port's autograd path and the reference's XLA path at
+    rtol = atol = 2e-4."""
+    ref, fg = _pair(name)
+    assert logpot.logpot_plan(fg) is None
+    plan = logpot.kernel_plan(fg)
+    assert plan is not None and plan.n_rows == sum(
+        int((fg.meta.np_buckets[i]["scale"] > 0).sum())
+        for i in fg.cont_bucket_idx)
+    x, p, xd = _states(fg, 7, seed=5)
+    im = np.ones(fg.n_cont, np.float32)
+    kw_r, kw_p = {}, {}
+    if tempered:
+        mid = 0.5 * (np.asarray(ref.cont_lo) + np.asarray(ref.cont_hi))
+        is2 = np.full(fg.n_cont, 0.25, np.float32)
+        kw_r = dict(beta=0.37, base_mid=jnp.asarray(mid),
+                    base_inv_s2=jnp.asarray(is2))
+        kw_p = dict(beta=torch.tensor(0.37),
+                    base_mid=torch.from_numpy(mid.astype(np.float32)),
+                    base_inv_s2=torch.from_numpy(is2))
+    want = ref_logpot.logpot_leapfrog(
+        ref, jnp.asarray(x), jnp.asarray(p), jnp.asarray(xd.astype(np.int32)),
+        jnp.asarray(im), 0.03, 4, plan=None, **kw_r)
+    pa = (fg, torch.from_numpy(x), torch.from_numpy(p), torch.from_numpy(xd),
+          torch.from_numpy(im), 0.03, 4)
+    for got in (logpot.logpot_leapfrog(*pa, plan=plan, **kw_p),
+                logpot.logpot_leapfrog(*pa, plan=None, **kw_p)):
+        for what, a, b in zip(("x1", "p1", "lp0", "lp1"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                       atol=2e-4, err_msg=f"{name} {what}")
+
+
+@pytest.mark.parametrize("case,match", [("ell", "ELL"),
+                                        ("no_planar", "planar kernel"),
+                                        ("shared_memory", "shared memory")])
+def test_kernel_plan_raises_where_k5_cannot_run(case, match, monkeypatch):
+    """K5's plan RAISES where K5 cannot run the graph (the reference's
+    plan is None there, or its gate says nothing of K5's limit), so
+    ``fused_logpot=True`` never leaves the kernel silently."""
+    if case == "ell":
+        fg = _ell_chain()
+    elif case == "no_planar":
+        fg = _no_planar()
+    else:  # one robot chain's state against a block of 16 bytes
+        fg = _pair("robot10")[1]
+        monkeypatch.setattr(logpot, "K5_SMEM_LIMIT", 16)
+    assert logpot.logpot_plan(fg) is None or case == "shared_memory"
+    with pytest.raises(NotImplementedError, match=match):
+        logpot.kernel_plan(fg)
+
+
+def test_auto_on_cuda_tensors_is_the_kernel_plan():
+    """On CUDA tensors ``plan="auto"`` is K5's own (cached) plan: a grid
+    over the reference's gate gets one, and a graph K5 cannot run raises
+    instead of running autograd. On CPU tensors it stays the autograd
+    path. (The routing reads only ``x.is_cuda``; a stand-in carries it.)"""
+    on_card = types.SimpleNamespace(is_cuda=True)
+    _, fg = _pair("denoise16")
+    plan = logpot._resolve_plan(fg, "auto", on_card)
+    assert plan is not None and plan is logpot.logpot_plan_cached(fg)
+    assert logpot._resolve_plan(fg, "auto", torch.zeros(1)) is None
+    for bad in (_ell_chain(), _no_planar()):
+        with pytest.raises(NotImplementedError):
+            logpot._resolve_plan(bad, "auto", on_card)
+        assert logpot._resolve_plan(bad, "auto", torch.zeros(1)) is None

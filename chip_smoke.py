@@ -22,24 +22,33 @@ Phases (any failure raises and the script exits non-zero):
    at N ∈ {7, 1000, 65,536}; K5 (fused non-quadratic leapfrog) against
    both plain versions (autograd, and the tape twin) on ``robot_map(100)``
    (16,384 chains, 8 steps, untempered and at β = 0.3 against the SMC
-   base) and the 11×11 denoising grid (4,096 chains, 5 steps);
-6. the four paths end to end, each with every kernel's launch counter
-   reset just before and read just after: ``hmc.run_hmc`` on the 10×10
-   grid (65,536 chains) and the 128×128 grid (1,024 chains);
-   ``nuts.run_nuts`` on the 10×10 grid (65,536 chains); ``smc.sample`` on
+   base) and the 11×11 and 16×16 denoising grids (4,096 chains, 5 steps);
+   K6 (banded leapfrog from given momenta) through ``dia_quad_leapfrog``
+   on the 128×128 grid's latent rows (1,024 chains, 1 and 8 steps)
+   against its plain version in f32 and f64;
+6. the paths end to end, each with every kernel's launch counter reset
+   just before it and read just after: ``hmc.run_hmc`` on the 10×10 grid
+   (65,536 chains) and the 128×128 grid (1,024 chains); ``nuts.run_nuts``
+   on the 10×10 grid (65,536 chains); ``smc.sample`` on
    ``kalman_lds(T=20)`` (65,536 particles, fixed and adaptive schedules)
-   and the 10×10 grid; and the robot path: HMC-within-Gibbs on
+   and the 10×10 grid; the robot path: HMC-within-Gibbs on
    ``robot_map(100)`` (16,384 chains × 50 samples) with
    ``fused_logpot=True`` (K5 on every proposal) and False, the two runs'
    agreement, the small robot instance against exact enumeration
    (65,536 chains), ``hybrid_chain``'s closed forms and SMC on the
-   denoising grid through K5. Each is held to exact answers (numpy/scipy
-   oracles, closed forms) or to its plain route, and the bench's
-   throughputs are printed.
+   denoising grid through K5; ``dia_quad_leapfrog`` (K6) driven forward
+   and back on the 128×128 grid; and the hybrid path: NUTS-within-Gibbs
+   on ``hybrid_chain`` and the small robot instance against exact
+   enumeration, on ``robot_map(100)`` at bench.py's NUTS settings (16,384
+   chains × 20 samples, timed) and against the fused HMC run, then SMC
+   with tempered Gibbs on ``hybrid_chain``. Each is held to exact answers
+   (numpy/scipy oracles, closed forms) or to its plain route, and the
+   bench's throughputs are printed.
 
-The last three lines are the kernels' JSON record, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``. The script imports
-nothing of JAX.
+The last three lines are the kernels' JSON record (each kernel's error,
+times, launches on its path and its bound on this card from this run's
+shapes), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -80,6 +89,30 @@ def time_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+# H100 SXM datasheet peaks at 700 W (NVIDIA data sheet, SXM part): HBM rate
+# and f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for a call: the larger of its
+    compulsory bytes (each input read once, each output written once)
+    over the HBM rate and its f32 operations over the peak f32 rate.
+    No single PyTorch call computes any of K1–K6, so ``library_ms`` is
+    null."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
 
 
 def rel_err(got, want) -> float:
@@ -125,8 +158,10 @@ def phase_k1(dev, cases=((10, 65536), (64, 4096))):
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if not ok or max(errs) > tol:
             raise AssertionError(f"K1 disagrees with its plain version at n={n}")
-        if rows == 10:  # the main path's shape
-            record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+        if rows == 10:  # the main path's shape: 9 products x·J per chain
+            record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                          **bound(nbytes(x, p, fg.quad_J, fg.quad_h, im, eps,
+                                         *got), 2 * C * n * n * 9))
     return record
 
 
@@ -158,10 +193,11 @@ def phase_k2(dev, rows=128, C=1024):
             pos=pos, inv=fg.quad_dia_inv, p0=p)
 
     def plain(xx, pp, dtype):
-        """The plain version in latent coordinates: dia_quad_leapfrog
-        (embedding by scatter through ``pos``) plus the energies."""
+        """The plain version in latent coordinates: the plain
+        dia_quad_leapfrog (embedding by scatter through ``pos``) plus the
+        energies."""
         cast = lambda t: t.to(dtype)  # noqa: E731
-        x1, p1, lp0, lp1 = dia.dia_quad_leapfrog(
+        x1, p1, lp0, lp1 = dia._plain_dia_quad_leapfrog(
             cast(xx), cast(pp), cast(fg.quad_diag), offs, cast(wdia),
             cast(fg.quad_h), cast(im), cast(eps), steps, pos=pos)
         ke = lambda q: 0.5 * torch.sum(cast(im)[None] * q * q, -1)  # noqa: E731
@@ -275,7 +311,137 @@ def phase_k2(dev, rows=128, C=1024):
     log(f"[K2] proposal (momenta + {steps}-step trajectory + energies), latent "
         f"rows in and out: dia_hmc_proposal {ms:.4f} ms (kernel alone on "
         f"embedded rows {kernel_ms:.4f} ms), plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=abs_x, ms=ms, plain_ms=plain_ms)
+    # the kernel's embedded rows: x in and x1 out, the K + 4 lane rows,
+    # log_acc; (K + 1) multiply-adds per lane per matvec, steps + 1 matvecs
+    K = len(offs)
+    return dict(max_abs_err=abs_x, ms=ms, plain_ms=plain_ms,
+                **bound(4 * (2 * C * n_emb + (K + 4) * n_emb + C + 1),
+                        2 * (K + 1) * C * n_emb * (steps + 1)))
+
+
+def k6_grid(dev, rows=128):
+    """The 128×128 evidence grid of phase_k2 on the banded path."""
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+
+    g, _ = gaussian_grid(rows, rows, seed=0, evidence_frac=0.2)
+    fg = compile_graph(g, dev, quad_max_n=min(4096, rows * rows // 4))
+    assert fg.quad_dia_offsets == (-rows, -1, 1, rows), fg.quad_dia_offsets
+    return fg
+
+
+def phase_k6(dev, C=1024):
+    """K6 through ``dia_quad_leapfrog`` on latent rows with ``pos``, as a
+    caller calls it, against the plain version in f32 and f64."""
+    import torch
+
+    from lhvi_tpu_torch.ops import dia
+
+    fg = k6_grid(dev)
+    offs, wdia, pos = fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_dia_pos
+    n, n_emb, K = fg.n_cont, wdia.shape[1], len(offs)
+    gen = torch.Generator(dev).manual_seed(11)
+    im = 0.5 + torch.rand((n,), generator=gen, device=dev)
+    x = 2.0 * torch.randn((C, n), generator=gen, device=dev)
+    p = torch.randn((C, n), generator=gen, device=dev) / torch.sqrt(im)
+    eps = torch.full((), 0.05, device=dev)
+    consts = (fg.quad_diag, offs, wdia, fg.quad_h, im, eps)
+    tol_x, tol_l32, tol_l64 = 1e-4, 1e-5, 2e-6
+    log(f"[K6] 128x128 grid: {n} latents, n_emb {n_emb}, offsets {offs}, "
+        f"C={C}; tolerances: x1, p1 within {tol_x}*max(1,|plain|) of the "
+        f"plain version in f32 and f64 (f32 trajectory, FMA contraction); "
+        f"lp0, lp1 within {tol_l32}*max(1,|plain|) of plain f32 (its f32 "
+        f"sums over 16k lanes) and {tol_l64}*max(1,|plain|) of plain f64 (the "
+        f"kernel sums in double; only its f32 trajectory differs)")
+
+    def cast(a, dt):
+        return a.to(dt) if isinstance(a, torch.Tensor) else a
+
+    record = None
+    for steps in (1, 8):
+        before = dia.dia_quad_leapfrog.launches
+        got = dia.dia_quad_leapfrog(x, p, *consts, steps, pos=pos)
+        if dia.dia_quad_leapfrog.launches != before + 1:
+            raise AssertionError("dia_quad_leapfrog did not launch K6 once")
+        errs = {}
+        for dt in (torch.float32, torch.float64):
+            want = dia._plain_dia_quad_leapfrog(
+                *(cast(a, dt) for a in (x, p) + consts), steps, pos=pos)
+            errs[dt] = (max(rel_err(got[0], want[0]), rel_err(got[1], want[1])),
+                        max(rel_err(got[2], want[2]), rel_err(got[3], want[3])),
+                        max(float((a.double() - b.double()).abs().max())
+                            for a, b in zip(got, want)))
+        torch.cuda.synchronize()
+        ok = all(bool(torch.isfinite(a).all()) for a in got)
+        (x32, l32, abs32), (x64, l64, _) = (errs[torch.float32],
+                                            errs[torch.float64])
+        log(f"[K6] {steps} steps: x1/p1 max rel err {x32:.3e} vs f32, "
+            f"{x64:.3e} vs f64; lp0/lp1 max rel err {l32:.3e} vs f32, "
+            f"{l64:.3e} vs f64; max abs err vs f32 {abs32:.3e}; mean lp0 "
+            f"{float(got[2].mean()):.6g}")
+        if not (ok and max(x32, x64) <= tol_x and l32 <= tol_l32
+                and l64 <= tol_l64):
+            raise AssertionError(f"K6 disagrees with its plain version at "
+                                 f"{steps} steps")
+        if steps == 8:
+            ms = time_ms(lambda: dia.dia_quad_leapfrog(x, p, *consts, 8,
+                                                       pos=pos))
+            kin = [dia._embed(a, pos, n_emb).contiguous()
+                   for a in (x, p, fg.quad_diag, fg.quad_h, im)]
+            kernel_ms = time_ms(lambda: dia._cuda_dia_leapfrog(
+                kin[0], kin[1], kin[2], offs, wdia, kin[3], kin[4], eps, 8))
+            plain_ms = time_ms(lambda: dia._plain_dia_quad_leapfrog(
+                x, p, *consts, 8, pos=pos))
+            log(f"[K6] 8-step trajectory, latent rows in and out: "
+                f"dia_quad_leapfrog {ms:.4f} ms (kernel alone on embedded "
+                f"rows {kernel_ms:.4f} ms), plain {plain_ms:.4f} ms")
+            # the kernel's embedded rows: x, p in and x1, p1 out, the
+            # K + 3 lane rows, lp0 and lp1; (K + 1) multiply-adds per lane
+            # per matvec, 9 matvecs
+            record = dict(max_abs_err=abs32, ms=ms, plain_ms=plain_ms,
+                          **bound(4 * (4 * C * n_emb + (K + 3) * n_emb
+                                       + 2 * C + 1),
+                                  2 * (K + 1) * C * n_emb * 9))
+    return record
+
+
+def path_dia_leapfrog(dev, C=1024):
+    """The K6 path: ``dia_quad_leapfrog`` as a caller drives it, on the
+    128×128 grid's latent rows. A forward trajectory and its reversal
+    return to the start; the second leg starts where the first ended
+    (its lp0 is the first's lp1); zero steps return the inputs."""
+    import torch
+
+    from lhvi_tpu_torch.ops import dia
+
+    fg = k6_grid(dev)
+    n = fg.n_cont
+    gen = torch.Generator(dev).manual_seed(12)
+    im = 0.5 + torch.rand((n,), generator=gen, device=dev)
+    x = 2.0 * torch.randn((C, n), generator=gen, device=dev)
+    p = torch.randn((C, n), generator=gen, device=dev) / torch.sqrt(im)
+
+    def op(xx, pp, steps):
+        return dia.dia_quad_leapfrog(
+            xx, pp, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w,
+            fg.quad_h, im, 0.05, steps, pos=fg.quad_dia_pos)
+
+    x1, p1, lp0, lp1 = op(x, p, 8)
+    x2, p2, lq0, lq1 = op(x1, -p1, 8)
+    x0, p0, la, lb = op(x, p, 0)
+    torch.cuda.synchronize()
+    ke = lambda q: 0.5 * (im[None] * q.double() ** 2).sum(-1)  # noqa: E731
+    dh = ((-lp1.double() + ke(p1)) - (-lp0.double() + ke(p))).abs()
+    rev = max(rel_err(x2, x), rel_err(-p2, p))
+    seam = max(rel_err(lq0, lp1), rel_err(lq1, lp0))
+    same = torch.equal(x0, x) and torch.equal(p0, p) and torch.equal(la, lb)
+    log(f"[dia_leapfrog] forward and back, 8 steps each, {C} chains: "
+        f"max rel err to the start {rev:.3e} (tol 1e-4), lp seam {seam:.3e} "
+        f"(tol 1e-5); energy error |dH| mean {float(dh.mean()):.4g}, max "
+        f"{float(dh.max()):.4g}; zero steps return the inputs: {same}")
+    if not (rev <= 1e-4 and seam <= 1e-5 and same
+            and bool(torch.isfinite(dh).all())):
+        raise AssertionError("dia_quad_leapfrog path off")
 
 
 def posterior_draws(J, h, C, gen):
@@ -379,7 +545,12 @@ def phase_k3(dev, cases=((10, 65536, 4), (10, 8192, 8), (64, 1024, 4))):
             raise AssertionError(f"K3 disagrees with its plain version at "
                                  f"n={n}, C={C}, max_depth={D}")
         if record is None:  # the first case is the bench's shape
-            record = dict(max_abs_err=q_abs, ms=ms, plain_ms=plain_ms)
+            # this run's work: one product q·J per chain at the start and
+            # one per leaf the trees took
+            record = dict(max_abs_err=q_abs, ms=ms, plain_ms=plain_ms,
+                          **bound(nbytes(xc, p0, fg.quad_J, fg.quad_h, im,
+                                         eps, U, *kern),
+                                  2 * n * n * (C + int(kern[2].sum()))))
 
     # in-kernel Philox uniforms through the wrapper
     g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
@@ -438,7 +609,9 @@ def phase_k4(dev, sizes=(7, 1000, 65536), scales=(3.0, 30.0)):
                 ms = time_ms(lambda: rs.weight_pipeline(lw))
                 plain_ms = time_ms(lambda: rs._torch_weight_pipeline(lw))
                 log(f"[K4] N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-                record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                # about 8 operations per weight: max, exp, sums, scan
+                record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                              **bound(nbytes(lw, lwn, cum, z, ess), 8 * N))
     return record
 
 
@@ -546,8 +719,24 @@ def phase_k5(dev, C_robot=16384, C_denoise=4096):
             raise AssertionError(f"K5 disagrees with its plain versions on "
                                  f"{name}")
         if record is None:  # the robot path's shape
-            record = dict(max_abs_err=abs_err, ms=ms, plain_ms=auto_ms)
+            record = dict(max_abs_err=abs_err, ms=ms, plain_ms=auto_ms,
+                          **bound(nbytes(x, p, dv, im, args[5], *got),
+                                  k5_flops(plan, C, steps)))
     return record
+
+
+def k5_flops(plan, C, steps):
+    """K5's operations for one call: per gradient evaluation (steps + 1 of
+    them) each active row's tape forward (one operation a node) and in
+    reverse (two), plus 2n² for the quadratic form; evidence-only rows'
+    tapes forward once."""
+    per_eval = once = 0
+    for bp in plan.buckets:
+        active = int((bp.rows < plan.n_active).sum())
+        per_eval += 3 * len(bp.tape) * active
+        once += len(bp.tape) * (bp.rows.numel() - active)
+    quad = 2 * plan.n_cont ** 2 if plan.has_quad else 0
+    return C * ((steps + 1) * (per_eval + quad) + once)
 
 
 def chain_spread(s_xc, s_xd, n_vals):
@@ -563,11 +752,12 @@ def chain_spread(s_xc, s_xd, n_vals):
     return [(a.mean(0), a.std(0) / C**0.5) for a in per]
 
 
-def phase_robot(dev, smi, C=16384, S=50, C_exact=65536, N_smc=16384):
+def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
     """The non-quadratic HMC-within-Gibbs path: bench.py's robot-map run
     fused (K5 on every proposal) and unfused, their agreement, the small
     instance against exact enumeration, hybrid_chain's closed forms and
-    an SMC run through K5."""
+    an SMC run through K5. ``keep["robot_hmc"]`` receives the fused run's
+    per-chain spread, which the NUTS-within-Gibbs path is held to."""
     import numpy as np
     import torch
 
@@ -612,16 +802,13 @@ def phase_robot(dev, smi, C=16384, S=50, C_exact=65536, N_smc=16384):
             f"{float(diag['accept_rate']):.4f}, step "
             f"{float(diag['step_size']):.4g}")
         del s_xc, s_xd
-    floor = 1.0 / (C * SS)
-    worst = 0.0
-    for (mf, sf), (mu, su) in zip(stats[True], stats[False]):
-        z = (mf - mu).abs() / torch.clamp((sf**2 + su**2).sqrt(), min=floor)
-        worst = max(worst, float(z.max()))
+    worst = largest_z(stats[True], stats[False], C * SS)
     log(f"[robot] fused vs unfused ({C} chains, {W} warmup + {SS} samples): "
         f"largest difference {worst:.3f} standard errors over the "
         f"{fg.n_cont} depth means and {fg.n_disc}x{fg.max_v} type marginals")
     if worst > 5.0:
         raise AssertionError("robot: fused and unfused runs disagree")
+    keep["robot_hmc"] = (stats[True], C * SS)
 
     # the small instance against exact enumeration (tests/test_robot_map.py)
     text, _ = robot_scan_evidence(5, seed=2, depth_miss_every=2,
@@ -703,6 +890,136 @@ def phase_robot(dev, smi, C=16384, S=50, C_exact=65536, N_smc=16384):
     if not abs(mf - mu) <= 5 * se + 1e-3:
         raise AssertionError("smc: fused and unfused log Z disagree")
     return rates
+
+
+def largest_z(a, b, n_draws):
+    """The largest |difference| in standard errors between two runs'
+    ``chain_spread`` summaries (floored at one draw's weight, so that a
+    value both runs never visit compares as equal)."""
+    import torch
+
+    worst = 0.0
+    for (ma, sa), (mb, sb) in zip(a, b):
+        z = (ma - mb).abs() / torch.clamp((sa**2 + sb**2).sqrt(),
+                                          min=1.0 / n_draws)
+        worst = max(worst, float(z.max()))
+    return worst
+
+
+def phase_hybrid(dev, smi, robot_hmc, C=16384, S=20, C_small=4096,
+                 N_smc=4096):
+    """NUTS-within-Gibbs (the lockstep loop on the autograd gradient, the
+    planned Gibbs sweep before each transition) against exact answers and
+    the fused HMC robot run, bench.py's NUTS robot rate, and SMC with
+    tempered Gibbs on hybrid_chain."""
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import nuts, smc
+    from lhvi_tpu_torch.models.relational import robot_map, robot_scan_evidence
+    from lhvi_tpu_torch.models.toy import hybrid_chain
+    from lhvi_tpu_torch.relational.data import load_evidence
+    from lhvi_tpu_torch.utils.oracle import ExactPosterior
+
+    # hybrid_chain against exact enumeration (tests/test_nuts_map.py:32-41)
+    g, (d, x1, x2) = hybrid_chain()
+    exact_h = exact = ExactPosterior(g, cont_grid=161)
+    fgh = compile_graph(g, dev)
+    t0 = time.perf_counter()
+    res = nuts.sample(fgh, torch.Generator(dev).manual_seed(3),
+                      n_chains=C_small, n_warmup=300, n_samples=400,
+                      collect="moments")
+    errs = (abs(res.mean(x1) - exact.mean(x1)), abs(res.mean(x2)
+                                                    - exact.mean(x2)),
+            float(np.abs(res.disc_marginal(d) - exact.disc_marginal(d)).max()))
+    log(f"[hybrid] nuts hybrid_chain, {C_small} chains, 300 + 400: E[x1] err "
+        f"{errs[0]:.4f}, E[x2] err {errs[1]:.4f} (< 0.1), P(d) err "
+        f"{errs[2]:.4f} (< 0.06); mean depth "
+        f"{float(res.diag['mean_depth']):.4f}, divergence rate "
+        f"{float(res.diag['divergence_rate']):.3e}, rhat_disc "
+        f"{float(res.diag['rhat_disc'].max()):.4f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (errs[0] < 0.1 and errs[1] < 0.1 and errs[2] < 0.06):
+        raise AssertionError("NUTS on hybrid_chain off the exact posterior")
+
+    # the small robot instance (tests/test_robot_map.py:46-55's thresholds)
+    text, _ = robot_scan_evidence(5, seed=2, depth_miss_every=2,
+                                  n_type_labels=1)
+    g, index = robot_map(5, evidence=load_evidence(text)).ground()
+    exact = ExactPosterior(g, cont_grid=81)
+    t0 = time.perf_counter()
+    res = nuts.sample(compile_graph(g, dev), torch.Generator(dev).manual_seed(4),
+                      cfg=nuts.NUTSConfig(max_depth=5, init_step_size=0.2,
+                                          gibbs_sweeps=2),
+                      n_chains=C_small, n_warmup=200, n_samples=300,
+                      collect="moments")
+    errs = [0.0, 0.0, 0.0]
+    for i in range(5):
+        rv_t = index[("type", (f"s{i}",))]
+        if not rv_t.observed:
+            errs[0] = max(errs[0], float(np.abs(
+                res.disc_marginal(rv_t) - exact.disc_marginal(rv_t)).max()))
+        rv_d = index[("depth", (f"s{i}",))]
+        if not rv_d.observed:
+            errs[1] = max(errs[1], abs(res.mean(rv_d) - exact.mean(rv_d)))
+            errs[2] = max(errs[2], abs(res.var(rv_d) - exact.var(rv_d)))
+    log(f"[hybrid] nuts small robot instance, {C_small} chains, max_depth 5, "
+        f"200 + 300: type marginal "
+        f"err {errs[0]:.4f} (< 0.06), depth mean err {errs[1]:.4f} (< 0.08), "
+        f"var err {errs[2]:.4f} (< 0.1); rhat_disc max "
+        f"{float(np.max(res.diag['rhat_disc'])):.4f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (errs[0] < 0.06 and errs[1] < 0.08 and errs[2] < 0.1):
+        raise AssertionError("NUTS on the small robot instance off the exact "
+                             "posterior")
+
+    # robot_map(100) at bench.py's settings (bench.py:286-313)
+    fg, _ = robot_fg(dev)
+    bcfg = nuts.NUTSConfig(max_depth=4, init_step_size=0.05, adapt_mass=False)
+
+    def run(seed):
+        m, _, _ = nuts.run_nuts(fg, torch.Generator(dev).manual_seed(seed),
+                                bcfg, n_chains=C, n_warmup=0, n_samples=S,
+                                collect="moments", stream_diag=False)
+        float(m["mean"][0])
+
+    dt, spread = timed_runs(run)
+    log(f"[hybrid] nuts robot100: {C * S / dt:.6g} chain-samples/s (rep "
+        f"spread {spread:.3f}), {C} chains x {S} samples, on {smi}")
+    # against the fused HMC run of the robot path: independent chains
+    stats_hmc, n_hmc = robot_hmc
+    W, SS = 200, 100
+    s_xc, s_xd, diag = nuts.run_nuts(fg, torch.Generator(dev).manual_seed(6),
+                                     bcfg, n_chains=C, n_warmup=W,
+                                     n_samples=SS)
+    worst = largest_z(chain_spread(s_xc, s_xd, fg.max_v), stats_hmc,
+                      min(C * SS, n_hmc))
+    log(f"[hybrid] nuts robot100 ({W} warmup + {SS} samples) vs fused HMC: "
+        f"largest difference {worst:.3f} standard errors over the "
+        f"{fg.n_cont} depth means and {fg.n_disc}x{fg.max_v} type marginals; "
+        f"accept {float(diag['accept_rate']):.4f}, mean depth "
+        f"{float(diag['mean_depth']):.4f}, step "
+        f"{float(diag['step_size']):.4g}")
+    if worst > 5.0:
+        raise AssertionError("NUTS and HMC disagree on robot_map(100)")
+    del s_xc, s_xd
+
+    # SMC with tempered Gibbs on hybrid_chain (tests/test_smc.py:68-77)
+    exact = exact_h
+    assert fgh.color_plan is not None  # the planned tempered sweep
+    t0 = time.perf_counter()
+    res = smc.sample(fgh, torch.Generator(dev).manual_seed(5),
+                     smc.SMCConfig(n_particles=N_smc, n_temps=40, n_moves=2))
+    errs = (abs(res.mean(x1) - exact.mean(x1)),
+            float(np.abs(res.disc_marginal(d) - exact.disc_marginal(d)).max()),
+            abs(res.log_z - exact.log_z))
+    log(f"[hybrid] smc hybrid_chain, {N_smc} particles, 40 temperatures: "
+        f"E[x1] err {errs[0]:.4f} (< 0.1), P(d) err {errs[1]:.4f} (< 0.06), "
+        f"log Z {res.log_z:.4f} (exact {exact.log_z:.4f}, err "
+        f"{errs[2]:.4f}); {time.perf_counter() - t0:.1f} s")
+    if not (errs[0] < 0.1 and errs[1] < 0.06):
+        raise AssertionError("SMC on hybrid_chain off the exact posterior")
 
 
 def timed_runs(run, reps=3):
@@ -934,7 +1251,7 @@ def main() -> int:
     # the script fails here, with no output on stdout
     import lhvi_tpu_torch  # noqa: F401  (turns TF32 off)
     from lhvi_tpu_torch.ops import _build
-    from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
+    from lhvi_tpu_torch.ops.dia import dia_hmc_proposal, dia_quad_leapfrog
     from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
     from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
     from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
@@ -961,19 +1278,27 @@ def main() -> int:
     k3 = phase_k3(dev)
     k4 = phase_k4(dev)
     k5 = phase_k5(dev)
+    k6 = phase_k6(dev)
     log(f"[time] kernel phases {time.perf_counter() - t0:.1f} s")
 
     counters = {"quad_leapfrog": quad_leapfrog, "dia_proposal": dia_hmc_proposal,
                 "nuts_traj": nuts_trajectory, "weights": weight_pipeline,
-                "logpot_leapfrog": logpot_leapfrog}
+                "logpot_leapfrog": logpot_leapfrog,
+                "dia_leapfrog": dia_quad_leapfrog}
     launches = {}
+    keep = {}
     # each path: every count set to 0 just before it, read just after
     for path, fn, kernels in (
             ("hmc", lambda: phase_slice(dev, smi),
              ("quad_leapfrog", "dia_proposal")),
             ("nuts", lambda: phase_nuts(dev, smi), ("nuts_traj",)),
             ("smc", lambda: phase_smc(dev, smi), ("weights",)),
-            ("robot", lambda: phase_robot(dev, smi), ("logpot_leapfrog",))):
+            ("robot", lambda: phase_robot(dev, smi, keep),
+             ("logpot_leapfrog",)),
+            ("dia_leapfrog", lambda: path_dia_leapfrog(dev),
+             ("dia_leapfrog",)),
+            ("hybrid", lambda: phase_hybrid(dev, smi, keep["robot_hmc"]),
+             ("weights",))):
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
@@ -984,7 +1309,7 @@ def main() -> int:
         for k in kernels:
             if seen[k] <= 0:
                 raise AssertionError(f"{k} never ran on the {path} path")
-            launches[k] = seen[k]
+            launches.setdefault(k, seen[k])
 
     kernels = [
         {"name": "quad_leapfrog", "route": "cuda",
@@ -1007,6 +1332,10 @@ def main() -> int:
          "source": "lhvi_tpu_torch/ops/csrc/logpot_leapfrog.cu",
          "replaces": "lhvi_tpu/ops/logpot.py:271",
          "launches": launches["logpot_leapfrog"], **k5},
+        {"name": "dia_leapfrog", "route": "cuda",
+         "source": "lhvi_tpu_torch/ops/csrc/dia_leapfrog.cu",
+         "replaces": "lhvi_tpu/ops/dia.py:184",
+         "launches": launches["dia_leapfrog"], **k6},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -42,9 +42,6 @@ import torch
 from lhvi_tpu_torch.fg.compile import _NEG_BIG, CompiledFG
 from lhvi_tpu_torch.ops.dia import _kinetic
 
-_SLICE2 = ("arrives with the rest of Slice 2: NUTS-within-Gibbs, "
-           "non-quadratic NUTS and tempered Gibbs (ROADMAP Queue 1 item 0)")
-
 
 @dataclasses.dataclass(frozen=True)
 class HMCConfig:
@@ -111,11 +108,14 @@ def state_values(fg: CompiledFG, xd):
     return out
 
 
-def gibbs_sweep(fg: CompiledFG, gen, xc, xd, max_colors: int = 0):
+def gibbs_sweep(fg: CompiledFG, gen, xc, xd, max_colors: int = 0,
+                beta=1.0):
     """Chromatic-Gibbs sweep over the discrete latents of all chains
     through the all-rows ``disc_logits``. ``max_colors > 0`` processes
     only that many color classes, starting at a random rotation per chain
-    (random-scan Gibbs with capped per-sweep cost)."""
+    (random-scan Gibbs with capped per-sweep cost). ``beta`` tempers the
+    conditionals, one categorical over ``beta · disc_logits`` per color
+    (SMC's tempered Gibbs on models without a color plan)."""
     if fg.n_disc == 0:
         return xd
     C, dev = xd.shape[0], xd.device
@@ -127,7 +127,7 @@ def gibbs_sweep(fg: CompiledFG, gen, xc, xd, max_colors: int = 0):
         off = torch.zeros((C,), dtype=torch.int64, device=dev)
     for s in range(n):
         color = (off + s) % fg.n_colors
-        new = categorical(gen, fg.disc_logits(xc, xd))
+        new = categorical(gen, beta * fg.disc_logits(xc, xd))
         xd = torch.where(fg.color_of[None, :] == color[:, None], new, xd)
     return xd
 
@@ -646,6 +646,66 @@ def _bm_schedule(n_samples: int) -> tuple:
     return (b, nb) if nb >= 2 else (0, 0)
 
 
+class _MomentStream:
+    """The moments-mode accumulators of ``run_hmc`` and ``nuts.run_nuts``:
+    sums for the mean and variance, per-value counts of the discrete
+    latents, and with ``stream_diag`` the streamed split-R̂/ESS of the
+    continuous draws and the split-R̂ of the value traces of up to
+    ``disc_diag_cap`` discrete latents (``disc_diag_select``)."""
+
+    def __init__(self, fg: CompiledFG, n_chains: int, n_samples: int,
+                 stream_diag: bool, disc_diag_cap: int):
+        dev = fg.device
+        self.fg, self.n_chains, self.n_samples = fg, n_chains, n_samples
+        self.half = n_samples // 2
+        self.bm_len, self.n_batches = _bm_schedule(n_samples)
+        self.s1 = torch.zeros(fg.n_cont, device=dev)
+        self.s2 = torch.zeros(fg.n_cont, device=dev)
+        self.cnt = torch.zeros((max(fg.n_disc, 1), fg.max_v), device=dev)
+        self.sd = (_stream_diag_init(n_chains, fg.n_cont, dev)
+                   if stream_diag else None)
+        self.sel = self.sdd = None
+        if stream_diag and fg.n_disc > 0 and disc_diag_cap > 0:
+            sel_np = disc_diag_select(fg, disc_diag_cap)
+            self.sel = torch.as_tensor(sel_np, dtype=torch.int64, device=dev)
+            self.sdd = _stream_diag_disc_init(n_chains, len(sel_np), dev)
+
+    def update(self, t: int, xc, xd):
+        """Fold draw ``t`` (0-based) of every chain in."""
+        fg = self.fg
+        self.s1 = self.s1 + torch.sum(xc, dim=0)
+        self.s2 = self.s2 + torch.sum(xc * xc, dim=0)
+        if fg.n_disc:
+            self.cnt = self.cnt + torch.stack(
+                [torch.sum(xd == v, dim=0) for v in range(fg.max_v)], dim=-1)
+        if self.sd is not None:
+            self.sd = _stream_diag_update(self.sd, t, xc, self.half,
+                                          self.bm_len, self.n_batches)
+        if self.sel is not None:
+            self.sdd = _stream_diag_disc_update(
+                self.sdd, t, _disc_sel_values(fg, self.sel, xd), self.half)
+
+    def finalize(self):
+        """``(moments, diag)``: the moments dict and the streamed
+        diagnostics' entries of ``diag``."""
+        n_obs = self.n_samples * self.n_chains
+        mean = self.s1 / n_obs
+        moments = {
+            "mean": mean,
+            "var": torch.clamp(self.s2 / n_obs - mean**2, min=0.0),
+            "disc_probs": self.cnt / n_obs,
+            "n_obs": n_obs,
+        }
+        diag = {}
+        if self.sd is not None:
+            diag.update(_stream_diag_finalize(self.sd, self.n_samples,
+                                              self.bm_len))
+        if self.sel is not None:
+            diag.update(_stream_diag_disc_finalize(self.sdd, self.n_samples))
+            diag["disc_diag_idx"] = self.sel
+        return moments, diag
+
+
 def run_hmc(
     fg: CompiledFG,
     gen: torch.Generator,
@@ -694,51 +754,19 @@ def run_hmc(
 
     acc_total = torch.zeros((), device=dev)
     if collect == "moments":
-        half = n_samples // 2
-        bm_len, n_batches = _bm_schedule(n_samples)
-        s1 = torch.zeros(fg.n_cont, device=dev)
-        s2 = torch.zeros(fg.n_cont, device=dev)
-        cnt = torch.zeros((max(fg.n_disc, 1), fg.max_v), device=dev)
-        sd = _stream_diag_init(n_chains, fg.n_cont, dev) if stream_diag else None
-        want_disc = stream_diag and fg.n_disc > 0 and disc_diag_cap > 0
-        if want_disc:
-            sel_np = disc_diag_select(fg, disc_diag_cap)
-            sel = torch.as_tensor(sel_np, dtype=torch.int64, device=dev)
-            sdd = _stream_diag_disc_init(n_chains, len(sel_np), dev)
+        ms = _MomentStream(fg, n_chains, n_samples, stream_diag,
+                           disc_diag_cap)
         for t in range(n_samples):
             state, acc = sample_step(state)
             acc_total = acc_total + acc
-            xc, xd = state.xc, state.xd
-            s1 = s1 + torch.sum(xc, dim=0)
-            s2 = s2 + torch.sum(xc * xc, dim=0)
-            if fg.n_disc:
-                cnt = cnt + torch.stack(
-                    [torch.sum(xd == v, dim=0) for v in range(fg.max_v)],
-                    dim=-1)
-            if stream_diag:
-                sd = _stream_diag_update(sd, t, xc, half, bm_len, n_batches)
-            if want_disc:
-                sdd = _stream_diag_disc_update(
-                    sdd, t, _disc_sel_values(fg, sel, xd), half)
-        n_obs = n_samples * n_chains
-        mean = s1 / n_obs
-        var = torch.clamp(s2 / n_obs - mean**2, min=0.0)
-        moments = {
-            "mean": mean,
-            "var": var,
-            "disc_probs": cnt / n_obs,
-            "n_obs": n_obs,
-        }
+            ms.update(t, state.xc, state.xd)
+        moments, stream = ms.finalize()
         diag = {
             "accept_rate": acc_total / max(n_samples, 1),
             "step_size": torch.exp(state.log_eps),
             "inv_mass": state.inv_mass,
-            **(_stream_diag_finalize(sd, n_samples, bm_len)
-               if stream_diag else {}),
+            **stream,
         }
-        if want_disc:
-            diag.update(_stream_diag_disc_finalize(sdd, n_samples))
-            diag["disc_diag_idx"] = sel
         return moments, None, diag
 
     s_xc, s_xd = [], []

@@ -13,12 +13,16 @@ On dense pure-quadratic targets every transition is ONE launch of kernel
 K3 (``ops.nuts_traj``), in which each chain stops at its own depth. The
 lockstep loop ``_nuts_lockstep`` — every chain advances through the same
 leaves behind masks, one batched gradient per leaf — is K3's plain version
-and the path for sparse targets, as in the reference.
+and the path for sparse and non-quadratic targets, as in the reference;
+on the latter each leaf's gradient is autograd over
+``log_prob_cont_batched`` at the chains' discrete states. Discrete latents
+move by the chromatic Gibbs sweeps of ``engines.hmc`` before each
+transition (NUTS-within-Gibbs).
 
 Same contract as ``hmc.run_hmc`` (``collect="moments"|"samples"``,
-``thin``, ``stream_diag``). Not in this slice (each raises
-``NotImplementedError`` naming its slice): discrete latents, non-quadratic
-targets, the mode-swap move and chain sharding.
+``thin``, ``stream_diag``, ``disc_diag_cap``). Not in this slice: the
+mode-swap move (raises ``NotImplementedError`` naming its slice); chain
+sharding is Slice 10's.
 """
 
 from __future__ import annotations
@@ -67,15 +71,7 @@ class NUTSConfig:
         )
 
 
-def _check_supported(fg: CompiledFG, cfg: NUTSConfig):
-    if fg.n_disc > 0:
-        raise NotImplementedError(
-            f"discrete latents (n_disc={fg.n_disc}): chromatic Gibbs "
-            + _hmc._SLICE2)
-    if fg.n_cont and not fg.cont_pure_quad:
-        raise NotImplementedError(
-            "NUTS on non-quadratic targets (autograd over "
-            "log_prob_cont_batched) " + _hmc._SLICE2)
+def _check_supported(cfg: NUTSConfig):
     if cfg.mode_swap:
         raise NotImplementedError(
             "mode_swap arrives with Slice 7, the pod flagship "
@@ -105,26 +101,36 @@ def _make_grad_lp(fg: CompiledFG, xd):
 
     Pure-quadratic continuous energy: one product serves both
     (``g = h − qJ`` and ``lp = c + ½ q·(h + g)``); sparse targets use the
-    ELL matvec. The non-quadratic branch (autograd at the chains' discrete
-    states) arrives with Slice 2.
+    ELL matvec. Otherwise autograd over ``fg.log_prob_cont_batched`` at
+    the chains' discrete states ``xd`` (the reference's ``jax.vjp``):
+    purely-discrete buckets are constant in q per chain, so they shift
+    every leaf's Hamiltonian of that chain equally and ∇_q is the full
+    log-prob's.
     """
-    if not fg.cont_pure_quad:
-        raise NotImplementedError(
-            "the non-quadratic NUTS gradient " + _hmc._SLICE2)
-    h, c = fg.quad_h, fg.quad_c
-    if fg.quad_sparse:
+    if fg.cont_pure_quad:
+        h, c = fg.quad_h, fg.quad_c
+        if fg.quad_sparse:
+            def grad_lp(q):
+                g = h[None, :] - fg.quad_matvec_batched(q)
+                lp = c + 0.5 * torch.sum(q * (h[None, :] + g), dim=-1)
+                return g, lp
+
+            return grad_lp
+        J = fg.quad_J
+
         def grad_lp(q):
-            g = h[None, :] - fg.quad_matvec_batched(q)
+            g = h[None, :] - q @ J
             lp = c + 0.5 * torch.sum(q * (h[None, :] + g), dim=-1)
             return g, lp
 
         return grad_lp
-    J = fg.quad_J
 
     def grad_lp(q):
-        g = h[None, :] - q @ J
-        lp = c + 0.5 * torch.sum(q * (h[None, :] + g), dim=-1)
-        return g, lp
+        with torch.enable_grad():
+            qr = q.detach().requires_grad_(True)
+            lp = fg.log_prob_cont_batched(qr, xd)
+            g = torch.autograd.grad(torch.sum(lp), qr, allow_unused=True)[0]
+        return (torch.zeros_like(q) if g is None else g), lp.detach()
 
     return grad_lp
 
@@ -341,18 +347,22 @@ def run_nuts(
     thin: int = 1,
     collect: str = "samples",
     stream_diag: bool = True,
+    disc_diag_cap: int = 4096,
 ):
-    """NUTS over the compiled graph; the contract of ``hmc.run_hmc``.
+    """NUTS-within-Gibbs over the compiled graph; the contract of
+    ``hmc.run_hmc``.
 
     collect="samples": ``(samples_xc [S, C, n_cont], samples_xd, diag)``;
-    collect="moments": ``(moments, None, diag)`` with the streamed
-    split-R̂/ESS when ``stream_diag``. Each emitted sample reports the LAST
-    transition of its ``thin`` block (acceptance, depth, divergence), as
-    the reference's ``fori_loop`` carry does.
+    collect="moments": ``(moments, None, diag)`` with the discrete
+    marginals (``disc_probs``) and, when ``stream_diag``, the streamed
+    split-R̂/ESS and the discrete split-R̂ over up to ``disc_diag_cap``
+    latents (``rhat_disc``, ``disc_diag_idx``). Each emitted sample
+    reports the LAST transition of its ``thin`` block (acceptance, depth,
+    divergence), as the reference's ``fori_loop`` carry does.
     """
     if collect not in ("samples", "moments"):
         raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
-    _check_supported(fg, cfg)
+    _check_supported(cfg)
     dev = fg.device
     hcfg = cfg.to_hmc()
     state = _hmc.init_hmc_state(fg, gen, hcfg, n_chains)
@@ -387,34 +397,14 @@ def run_nuts(
         }
 
     if collect == "moments":
-        half = n_samples // 2
-        bm_len, n_batches = _hmc._bm_schedule(n_samples)
-        s1 = torch.zeros(fg.n_cont, device=dev)
-        s2 = torch.zeros(fg.n_cont, device=dev)
-        sd = (_hmc._stream_diag_init(n_chains, fg.n_cont, dev)
-              if stream_diag else None)
+        ms = _hmc._MomentStream(fg, n_chains, n_samples, stream_diag,
+                                disc_diag_cap)
         for t in range(n_samples):
             state, stats = sample_step(state)
             add(stats)
-            xc = state.xc
-            s1 = s1 + torch.sum(xc, dim=0)
-            s2 = s2 + torch.sum(xc * xc, dim=0)
-            if stream_diag:
-                sd = _hmc._stream_diag_update(sd, t, xc, half, bm_len,
-                                              n_batches)
-        n_obs = n_samples * n_chains
-        mean = s1 / n_obs
-        moments = {
-            "mean": mean,
-            "var": torch.clamp(s2 / n_obs - mean**2, min=0.0),
-            "disc_probs": torch.zeros((max(fg.n_disc, 1), fg.max_v),
-                                      device=dev),
-            "n_obs": n_obs,
-        }
-        diag = base_diag(state)
-        if stream_diag:
-            diag.update(_hmc._stream_diag_finalize(sd, n_samples, bm_len))
-        return moments, None, diag
+            ms.update(t, state.xc, state.xd)
+        moments, stream = ms.finalize()
+        return moments, None, {**base_diag(state), **stream}
 
     s_xc, s_xd = [], []
     for _ in range(n_samples):

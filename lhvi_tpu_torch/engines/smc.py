@@ -15,15 +15,18 @@ the adaptive CESS-targeted one), with
   tempered target (``ops.logpot``: autograd by default, the fused
   log-potential kernel K5 with ``fused_logpot``), the fused dense
   leapfrog (K1, ``quad_moves``), or on sparse quadratic targets the banded
-  proposal (K2) or the ELL leapfrog.
+  proposal (K2) or the ELL leapfrog; after each, a tempered Gibbs sweep
+  over the discrete latents (the conditionals' logits times β; uniform
+  base over the discrete latents): through the color plan
+  (``hmc.gibbs_sweep_planned``) where the model has one, else the
+  all-rows sweep (``hmc.gibbs_sweep``).
 
 On the fixed schedule a temperature reads nothing back to the host. The
 adaptive schedule reads one flag per temperature (``β < 1``, the
 reference's ``lax.cond``) and stops the loop once β reaches 1.
 
 Not in this slice (each raises ``NotImplementedError`` naming its slice):
-discrete latents (tempered Gibbs), ``mode_swap`` and a sharded particle
-axis.
+``mode_swap`` and a sharded particle axis.
 """
 
 from __future__ import annotations
@@ -35,7 +38,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lhvi_tpu_torch.engines.hmc import _SLICE2, _to_numpy
+from lhvi_tpu_torch.engines.hmc import (
+    _to_numpy,
+    gibbs_sweep,
+    gibbs_sweep_planned,
+)
 from lhvi_tpu_torch.fg.compile import CompiledFG
 from lhvi_tpu_torch.ops.resample import systematic_parents, weight_pipeline
 
@@ -73,11 +80,7 @@ class SMCState(NamedTuple):
     log_z: torch.Tensor  # 0-d running evidence estimate
 
 
-def _check_supported(fg: CompiledFG, cfg: SMCConfig, shard):
-    if fg.n_disc > 0:
-        raise NotImplementedError(
-            f"discrete latents (n_disc={fg.n_disc}): tempered Gibbs "
-            + _SLICE2)
+def _check_supported(cfg: SMCConfig, shard):
     if cfg.mode_swap:
         raise NotImplementedError(
             "mode_swap arrives with Slice 7, the pod flagship "
@@ -244,7 +247,9 @@ def move_quad_sparse(fg: CompiledFG, cfg: SMCConfig, gen, xc, beta, step):
 
 
 def _rejuvenate(fg: CompiledFG, cfg: SMCConfig, gen, xc, xd, beta, step):
-    """cfg.n_moves moves at β → (xc, mean acceptance over the moves)."""
+    """cfg.n_moves moves at β, each an HMC move of the continuous latents
+    and then a tempered Gibbs sweep of the discrete ones →
+    ``(xc, xd, mean acceptance over the moves)``."""
     accs = []
     for _ in range(cfg.n_moves):
         if fg.n_cont and fg.cont_pure_quad and fg.quad_sparse:
@@ -256,8 +261,11 @@ def _rejuvenate(fg: CompiledFG, cfg: SMCConfig, gen, xc, xd, beta, step):
         else:
             ok = torch.ones((xc.shape[0],), dtype=torch.bool,
                             device=xc.device)
+        sweep = (gibbs_sweep_planned if fg.color_plan is not None
+                 else gibbs_sweep)
+        xd = sweep(fg, gen, xc, xd, beta=beta)  # no-op without n_disc
         accs.append(torch.mean(ok.to(torch.float32)))
-    return xc, torch.mean(torch.stack(accs))
+    return xc, xd, torch.mean(torch.stack(accs))
 
 
 def run_smc(fg: CompiledFG, gen: torch.Generator,
@@ -268,7 +276,7 @@ def run_smc(fg: CompiledFG, gen: torch.Generator,
 
     ``gen`` (a ``torch.Generator`` on ``fg.device``) drives every draw.
     """
-    _check_supported(fg, cfg, shard)
+    _check_supported(cfg, shard)
     N = cfg.n_particles
     dev = fg.device
     mid = 0.5 * (fg.cont_lo + fg.cont_hi)
@@ -283,8 +291,9 @@ def run_smc(fg: CompiledFG, gen: torch.Generator,
         u0 = torch.rand((), generator=gen, device=dev)
         state, ess = _reweight_resample(fg, cfg, state, beta_prev, beta, u0,
                                         delta_lp)
-        xc, acc = _rejuvenate(fg, cfg, gen, state.xc, state.xd, beta, step)
-        return state._replace(xc=xc), ess, acc
+        xc, xd, acc = _rejuvenate(fg, cfg, gen, state.xc, state.xd, beta,
+                                  step)
+        return state._replace(xc=xc, xd=xd), ess, acc
 
     ess_tr, acc_tr, beta_tr = [], [], []
     if not cfg.adaptive:

@@ -40,6 +40,9 @@ _SIGNATURES = {
     # C, n_emb, K, offsets (host int[K]), n_steps, seed, offset, stream
     "lhvi_dia_proposal": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _P, _I, _U64, _U64, _P),
+    # x, p, diag, wdia, h, inv_mass, eps, x_out, p_out, lp0, lp1,
+    # C, n_emb, K, offsets (host int[K]), n_steps, stream
+    "lhvi_dia_leapfrog": (_P,) * 11 + (_I, _I, _I, _P, _I, _P),
     # q0, p0, J, h, inv_mass, eps, uniforms (or null), q_prop, sum_acc,
     # n_leaf, depth, diverged, scratch (or null), C, n, max_depth, seed,
     # offset, stream

@@ -17,7 +17,8 @@
 // momenta in-kernel removes it.
 //
 // Design. One block of 1,024 threads owns one chain for the whole
-// trajectory: the chain's positions and momenta stay in shared memory
+// trajectory (the body it shares with K6 is in dia_traj.cuh): the chain's
+// positions and momenta stay in shared memory
 // (2 x 64 KB at the bench shape, up to 2 x 28,672 lanes), so the shifted
 // reads x[i + o_k] are shared-memory loads and device memory sees one
 // read of x and one write of x1 per proposal. Shifted indices wrap modulo
@@ -41,15 +42,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dia_traj.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kMaxOffsets = 8;
-constexpr int kSmemLimit = 227 * 1024;
-
-struct Offsets {
-  int o[kMaxOffsets];
-};
+using lhvi_dia::kThreads;
+using lhvi_dia::Offsets;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
@@ -77,36 +75,6 @@ __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b,
   sincospif(2.0f * uniform_open0(b), &s, &c);
   *z0 = r * c;
   *z1 = r * s;
-}
-
-// (J x)[i] on the chain's shared-memory row.
-__device__ __forceinline__ float band_matvec(const float* xs, int i, int n,
-                                             const float* __restrict__ diag,
-                                             const float* __restrict__ wdia,
-                                             int K, const Offsets& offs) {
-  float y = diag[i] * xs[i];
-  for (int k = 0; k < K; ++k) {
-    int j = i + offs.o[k];
-    if (j < 0) j += n; else if (j >= n) j -= n;
-    y += wdia[(size_t)k * n + i] * xs[j];
-  }
-  return y;
-}
-
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read from a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  double t = 0.0;
-  if (warp == 0) {
-    t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
-  }
-  return t;  // valid in thread 0
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -150,43 +118,21 @@ dia_proposal_kernel(const float* __restrict__ x,
   }
   __syncthreads();
 
-  // start: lp0, ke0 and the first half-kick (each lane's momentum is
-  // owned by one thread; positions are only read here)
   double lp0 = 0.0, ke0 = 0.0;
-  for (int i = tid; i < n; i += kThreads) {
-    float g = h[i] - band_matvec(xs, i, n, diag, wdia, K, offs);
-    float m = ms[i];
-    lp0 += (double)(xs[i] * (h[i] + g));
-    ke0 += (double)(im[i] * m * m);
-    if (n_steps > 0) ms[i] = m + 0.5f * eps * g;
-  }
-  if (n_steps > 0) {
-    for (int s = 0; s < n_steps - 1; ++s) {
-      __syncthreads();
-      for (int i = tid; i < n; i += kThreads) xs[i] += eps * im[i] * ms[i];
-      __syncthreads();
-      for (int i = tid; i < n; i += kThreads) {
-        float g = h[i] - band_matvec(xs, i, n, diag, wdia, K, offs);
-        ms[i] += eps * g;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < n; i += kThreads) xs[i] += eps * im[i] * ms[i];
-  }
-  __syncthreads();
+  lhvi_dia::trajectory(xs, ms, n, diag, wdia, h, im, K, offs, eps, n_steps,
+                       &lp0, &ke0);
   double lp1 = 0.0, ke1 = 0.0;
   float* xorow = xo + (size_t)c * n;
   for (int i = tid; i < n; i += kThreads) {
-    float g = h[i] - band_matvec(xs, i, n, diag, wdia, K, offs);
-    // n_steps == 0 is the identity map: the endpoint sums repeat the
-    // start's exactly and log_acc is 0
-    float p1 = n_steps > 0 ? ms[i] + 0.5f * eps * g : ms[i];
-    lp1 += (double)(xs[i] * (h[i] + g));
+    float p1 = lhvi_dia::end_lane(xs, ms, i, n, diag, wdia, h, K, offs, eps,
+                                  n_steps, &lp1);
     ke1 += (double)(im[i] * p1 * p1);
     xorow[i] = xs[i];
   }
-  double d = 0.5 * (block_sum(lp1, red) - block_sum(lp0, red));
-  d += 0.5 * (block_sum(ke0, red) - block_sum(ke1, red));
+  // n_steps == 0: the endpoint sums repeat the start's and log_acc is 0
+  double d = 0.5 * (lhvi_dia::block_sum(lp1, red)
+                    - lhvi_dia::block_sum(lp0, red));
+  d += 0.5 * (lhvi_dia::block_sum(ke0, red) - lhvi_dia::block_sum(ke1, red));
   if (tid == 0) log_acc[c] = (float)(d > 0.0 ? 0.0 : d);  // NaN stays NaN
 }
 
@@ -200,17 +146,10 @@ extern "C" int lhvi_dia_proposal(const float* x, const float* diag,
                                  int K, const int* offsets, int n_steps,
                                  unsigned long long seed,
                                  unsigned long long offset, void* stream) {
-  if (C <= 0 || n <= 0 || n_steps < 0 || K < 0 || K > kMaxOffsets)
-    return (int)cudaErrorInvalidValue;
-  Offsets offs = {};
-  for (int k = 0; k < K; ++k) {
-    // |o| < n keeps the single-wrap index arithmetic in range
-    if (offsets[k] <= -n || offsets[k] >= n) return (int)cudaErrorInvalidValue;
-    offs.o[k] = offsets[k];
-  }
-  size_t smem = 2 * (size_t)n * sizeof(float);
-  if (smem > (size_t)kSmemLimit - 32 * sizeof(double))
-    return (int)cudaErrorInvalidValue;
+  Offsets offs;
+  size_t smem;
+  int code = lhvi_dia::check_launch(C, n, K, offsets, n_steps, &offs, &smem);
+  if (code != 0) return code;
   cudaError_t err = cudaFuncSetAttribute(
       dia_proposal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

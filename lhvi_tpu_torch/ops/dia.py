@@ -7,7 +7,9 @@ offset set ``{o_k}``. The host half (``ell_to_dia``, ``pos_to_inv``) is the
 reference's numpy code. The device half runs the whole HMC proposal —
 momentum draw, trajectory, energies, log-accept — in ONE kernel (K2,
 ``csrc/dia_proposal.cu``) that keeps a chain's positions and momenta in
-shared memory for the whole trajectory.
+shared memory for the whole trajectory; the public leapfrog from given
+momenta, ``dia_quad_leapfrog``, runs the same trajectory body in K6
+(``csrc/dia_leapfrog.cu``).
 
 Correctness of wrapped indices: an entry ``w_k[i] ≠ 0`` implies the edge
 (i, i+o_k) exists, hence ``0 ≤ i+o_k < n`` — every wrapped-around neighbour
@@ -26,7 +28,7 @@ import torch
 from lhvi_tpu_torch.ops import _build
 from lhvi_tpu_torch.ops.leapfrog import _check_f32, eps_tensor
 
-# Widest embedded row K2 takes: one chain's positions and momenta in
+# Widest embedded row K2 and K6 take: one chain's positions and momenta in
 # shared memory, 2·4·n_emb bytes within the H100's 227 KB per block. Wider
 # banded models take the ELL path (as the reference does past its own cap).
 DIA_MAX_EMB = 28 * 1024
@@ -157,30 +159,86 @@ def _torch_dia_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
     return x, p1, lp0, _lp(x, h, g1)
 
 
+def _around_pos(run, x, p, diag, offsets, wdia, h, inv_mass, eps,
+                n_steps: int, pos):
+    """``run`` (a trajectory on EMBEDDED rows) on latent rows: ``pos``
+    embeds once around the whole trajectory; evidence lanes are inert
+    there (diag = h = im = 0) and lp is embedding-invariant."""
+    if pos is not None:
+        n_emb = wdia.shape[1]
+        x, p, diag, h, inv_mass = (_embed(a, pos, n_emb)
+                                   for a in (x, p, diag, h, inv_mass))
+    x1, p1, lp0, lp1 = run(x, p, diag, offsets, wdia, h, inv_mass, eps,
+                           n_steps)
+    if pos is not None:
+        x1, p1 = x1[..., pos], p1[..., pos]
+    return x1, p1, lp0, lp1
+
+
+def _plain_dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
+                             n_steps: int, pos=None):
+    """The plain version of :func:`dia_quad_leapfrog` on any device and
+    dtype: ``_torch_dia_leapfrog`` with the same embedding around it."""
+    return _around_pos(_torch_dia_leapfrog, x, p, diag, offsets, wdia, h,
+                       inv_mass, eps, n_steps, pos)
+
+
+def _cuda_dia_leapfrog(x, p, diag, offsets, wdia, h, im, eps, n_steps: int):
+    """Launch K6 on EMBEDDED rows: x, p [C, n_emb] →
+    ``(x1, p1 [C, n_emb], lp0, lp1 [C])``."""
+    C, n = x.shape
+    K = len(offsets)
+    dev = x.device
+    eps = eps_tensor(eps, dev)
+    if n > DIA_MAX_EMB:
+        raise ValueError(f"n_emb {n} exceeds DIA_MAX_EMB {DIA_MAX_EMB}")
+    if K > 8:
+        raise ValueError(f"{K} offsets; K6 takes at most 8")
+    for name, t, shape in (("x", x, (C, n)), ("p", p, (C, n)),
+                           ("diag", diag, (n,)), ("wdia", wdia, (K, n)),
+                           ("h", h, (n,)), ("inv_mass", im, (n,)),
+                           ("eps", eps, ())):
+        _check_f32(name, t, dev, shape)
+    xo, po = torch.empty_like(x), torch.empty_like(p)
+    lp0 = torch.empty((C,), dtype=torch.float32, device=dev)
+    lp1 = torch.empty((C,), dtype=torch.float32, device=dev)
+    offs = (ctypes.c_int * max(K, 1))(*offsets)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _build.lib().lhvi_dia_leapfrog(
+        x.data_ptr(), p.data_ptr(), diag.data_ptr(), wdia.data_ptr(),
+        h.data_ptr(), im.data_ptr(), eps.data_ptr(), xo.data_ptr(),
+        po.data_ptr(), lp0.data_ptr(), lp1.data_ptr(), C, n, K,
+        ctypes.cast(offs, ctypes.c_void_p), int(n_steps), stream)
+    _build.check(code, "dia_leapfrog")
+    dia_quad_leapfrog.launches += 1
+    return xo, po, lp0, lp1
+
+
 def dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
                       n_steps: int, pos=None):
-    """Batched leapfrog on a BANDED quadratic target (torch ops).
+    """Batched leapfrog on a BANDED quadratic target.
 
     Returns ``(x1, p1, lp0, lp1)`` — endpoint positions/momenta plus the
     endpoint log-potentials WITHOUT the constant. ``pos`` (declaration-
-    order embedding) is applied once around the whole trajectory: evidence
-    lanes are inert there (diag = h = im = 0). The reference's Pallas
-    trajectory kernel for this function (``_dia_leapfrog_kernel``, K6) is
-    still to be ported; K2 carries the sampler's banded path.
+    order embedding) is applied once around the whole trajectory.
+
+    CUDA tensors go through kernel K6 (``csrc/dia_leapfrog.cu``;
+    ``dia_quad_leapfrog.launches`` counts its launches), f32 only, at most
+    ``DIA_MAX_EMB`` embedded lanes and 8 offsets; CPU tensors through the
+    plain version ``_torch_dia_leapfrog``. ``n_steps == 0`` returns x and
+    p unchanged and lp0 twice on both routes.
     """
-    if pos is not None:
-        n_emb = wdia.shape[1]
-        x = _embed(x, pos, n_emb)
-        p = _embed(p, pos, n_emb)
-        diag = _embed(diag, pos, n_emb)
-        h = _embed(h, pos, n_emb)
-        inv_mass = _embed(inv_mass, pos, n_emb)
-    out = _torch_dia_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
-                              n_steps)
-    if pos is not None:
-        # lp is embedding-invariant (gap lanes are zero)
-        out = (out[0][..., pos], out[1][..., pos], out[2], out[3])
-    return out
+    if x.is_cuda:
+        run = _cuda_dia_leapfrog
+    elif x.device.type == "cpu":
+        run = _torch_dia_leapfrog
+    else:
+        raise NotImplementedError(f"dia_quad_leapfrog: no route for {x.device}")
+    return _around_pos(run, x, p, diag, offsets, wdia, h, inv_mass, eps,
+                       n_steps, pos)
+
+
+dia_quad_leapfrog.launches = 0
 
 
 # XORed into K2's Philox key so that its counters, laid out (lane quad,

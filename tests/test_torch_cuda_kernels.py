@@ -1,6 +1,6 @@
-"""K1 and K2 against their plain versions on an NVIDIA GPU, at small shapes
-that reach the kernels' edge cases (ragged chain tiles, both K1 tile
-configurations, zero steps, gap lanes).
+"""The port's CUDA kernels (K1–K6) against their plain versions on an
+NVIDIA GPU, at shapes that reach the kernels' edge cases (ragged chain
+tiles, both K1 tile configurations, zero steps, gap lanes).
 
 Marked ``cuda``: each test skips where no CUDA device is present. This
 file imports only torch and the port (no JAX), so it runs on the card's
@@ -181,6 +181,76 @@ def test_dia_runs_on_one_generator_draw_fresh_momenta(dev, grid32):
     assert not torch.equal(runs[0][both], runs[1][both])
 
 
+# ---- K6: the banded leapfrog from given momenta ------------------------------
+
+
+@pytest.fixture(scope="module")
+def dia_grids(dev):
+    """tests/test_dia.py's 16×16 grid and chip_smoke.py's 128×128 grid on
+    the banded path."""
+    out = {}
+    for rows, frac, qmax in ((16, 0.15, 64), (128, 0.2, 4096)):
+        g, _ = gaussian_grid(rows, rows, seed=0, evidence_frac=frac)
+        fg = lt.compile_graph(g, dev, quad_max_n=qmax)
+        assert fg.quad_dia_offsets == (-rows, -1, 1, rows)
+        out[rows] = fg
+    return out
+
+
+@pytest.mark.parametrize("rows,C", [(16, 37), (128, 19)])
+@pytest.mark.parametrize("n_steps", [0, 1, 6])
+def test_dia_leapfrog_kernel_matches_plain(dev, dia_grids, rows, C, n_steps):
+    """K6 through ``dia_quad_leapfrog`` on latent rows with ``pos``, one
+    launch per call, against the plain version on the same tensors in f32
+    and f64. Tolerances: x1, p1 within 1e-4·max(1,|plain|) (f32
+    trajectory, FMA contraction); lp0, lp1 within 1e-5·max(1,|plain|) of
+    plain f32 and 2e-6 of plain f64 (the kernel sums in double). Zero
+    steps return x and p bitwise and lp0 twice."""
+    fg = dia_grids[rows]
+    n = fg.n_cont
+    g = torch.Generator(dev).manual_seed(rows + n_steps)
+    im = 0.5 + torch.rand((n,), generator=g, device=dev)
+    x = 2.0 * torch.randn((C, n), generator=g, device=dev)
+    p = torch.randn((C, n), generator=g, device=dev) / torch.sqrt(im)
+    consts = (fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h,
+              im, torch.full((), 0.05, device=dev))
+    before = dia.dia_quad_leapfrog.launches
+    got = dia.dia_quad_leapfrog(x, p, *consts, n_steps, pos=fg.quad_dia_pos)
+    torch.cuda.synchronize()
+    assert dia.dia_quad_leapfrog.launches == before + 1
+    for dt, tol_l in ((torch.float32, 1e-5), (torch.float64, 2e-6)):
+        cast = [a.to(dt) if isinstance(a, torch.Tensor) else a
+                for a in (x, p) + consts]
+        want = dia._plain_dia_quad_leapfrog(*cast, n_steps,
+                                            pos=fg.quad_dia_pos)
+        assert _rel(got[0], want[0]) < 1e-4 and _rel(got[1], want[1]) < 1e-4
+        assert _rel(got[2], want[2]) < tol_l and _rel(got[3], want[3]) < tol_l
+    if n_steps == 0:
+        assert torch.equal(got[0], x) and torch.equal(got[1], p)
+        assert torch.equal(got[2], got[3])
+
+
+def test_dia_leapfrog_kernel_rejects_bad_input(dev):
+    """Past DIA_MAX_EMB lanes or 8 offsets K6 raises ValueError; f64 CUDA
+    tensors raise TypeError (no route falls back to the plain version)."""
+    n = dia.DIA_MAX_EMB + 1
+    x = torch.zeros((2, n), device=dev)
+    v = torch.ones(n, device=dev)
+    before = dia.dia_quad_leapfrog.launches
+    with pytest.raises(ValueError, match="DIA_MAX_EMB"):
+        dia.dia_quad_leapfrog(x, x, v, (1,), torch.zeros((1, n), device=dev),
+                              v, v, 0.1, 2)
+    x, v = x[:, :64].contiguous(), v[:64].contiguous()
+    with pytest.raises(ValueError, match="at most 8"):
+        dia.dia_quad_leapfrog(x, x, v, tuple(range(1, 10)),
+                              torch.zeros((9, 64), device=dev), v, v, 0.1, 2)
+    w = torch.zeros((1, 64), device=dev)
+    with pytest.raises(TypeError):
+        dia.dia_quad_leapfrog(x.double(), x.double(), v.double(), (1,),
+                              w.double(), v.double(), v.double(), 0.1, 2)
+    assert dia.dia_quad_leapfrog.launches == before
+
+
 # ---- K3: the NUTS trajectory ----------------------------------------------
 
 
@@ -322,9 +392,9 @@ def test_nuts_and_smc_steps_never_sync_with_the_host(dev):
             u0 = torch.rand((), generator=gen, device=dev)
             st, ess = smc._reweight_resample(fg2, scfg, st, betas[t],
                                              betas[t + 1], u0)
-            xc, acc = smc._rejuvenate(fg2, scfg, gen, st.xc, st.xd,
-                                      betas[t + 1], scfg.step_size)
-            st = st._replace(xc=xc)
+            xc, xd, acc = smc._rejuvenate(fg2, scfg, gen, st.xc, st.xd,
+                                          betas[t + 1], scfg.step_size)
+            st = st._replace(xc=xc, xd=xd)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert (nt.nuts_trajectory.launches + rs.weight_pipeline.launches
@@ -457,3 +527,27 @@ def test_hybrid_transitions_never_sync_with_the_host(dev):
         torch.cuda.set_sync_debug_mode(0)
     assert logpot.logpot_leapfrog.launches == before + 2
     assert torch.isfinite(state.xc).all()
+
+
+def test_nuts_within_gibbs_and_tempered_smc_run_on_the_card(dev):
+    """NUTS-within-Gibbs (the lockstep loop on the autograd gradient after
+    the planned sweep) and SMC with the tempered Gibbs sweep on a hybrid
+    model with CUDA tensors: the states stay on the card, finite and in
+    their domains."""
+    from lhvi_tpu_torch.engines import hmc, nuts, smc
+
+    fg = lt.compile_graph(_logpot_model("robot10"), dev)
+    sizes = torch.as_tensor(fg.meta.np_global["disc_sizes"], device=dev)
+    cfg = nuts.NUTSConfig(max_depth=3, init_step_size=0.05)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = hmc.init_hmc_state(fg, gen, cfg.to_hmc(), 64)
+    for _ in range(2):
+        state, (acc, depth, div) = nuts.nuts_transition(fg, cfg, state, gen,
+                                                        True)
+    xc, xd, _, log_z, _ = smc.run_smc(
+        fg, gen, smc.SMCConfig(n_particles=256, n_temps=3, n_moves=1))
+    for a, b in ((state.xc, state.xd), (xc, xd)):
+        assert a.is_cuda and b.is_cuda and bool(torch.isfinite(a).all())
+        assert bool(((b >= 0) & (b < sizes[None])).all())
+    assert bool(((acc >= 0) & (acc <= 1)).all()) and int(depth.max()) <= 3
+    assert bool(torch.isfinite(log_z))

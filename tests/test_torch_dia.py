@@ -4,7 +4,10 @@ Band detection is the same numpy code on both sides, so its outputs are
 EQUAL. Matvecs and trajectories are f32 arithmetic in another summation
 order: rtol 1e-5 (atol 1e-5 where entries are near 0, e.g. gap lanes).
 K2's momenta are drawn by Philox on the card and are compared only
-statistically there (chip_smoke.py); here p0 is given to both sides.
+statistically there (chip_smoke.py); here p0 is given to both sides. The
+public leapfrog ``dia_quad_leapfrog`` (K6 on the card) runs its plain
+version on CPU tensors, held here to the reference's Pallas kernel in
+interpret mode and to its public op.
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 import lhvi_tpu.models.toy as ref_toy  # noqa: E402
 from lhvi_tpu import compile_graph as ref_compile  # noqa: E402
@@ -173,6 +177,90 @@ def test_dia_hmc_proposal_cpu_draw_is_plain(grids):
     assert dia.dia_hmc_proposal.launches == before
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.isfinite(a[0]).all() and (a[1] <= 0).all()
+
+
+@pytest.fixture(scope="module")
+def grid16():
+    """tests/test_dia.py's 16×16 grid (15% evidence) forced onto the banded
+    path, in both packages."""
+    g_ref, _ = ref_toy.gaussian_grid(16, 16, seed=0, evidence_frac=0.15)
+    g, _ = toy.gaussian_grid(16, 16, seed=0, evidence_frac=0.15)
+    ref = ref_compile(g_ref, quad_max_n=64)
+    fg = lt.compile_graph(g, "cpu", quad_max_n=64)
+    assert fg.quad_dia_offsets == ref.quad_dia_offsets == (-16, -1, 1, 16)
+    assert fg.quad_dia_w.shape == (4, 256) and fg.n_cont < 256
+    return ref, fg
+
+
+@pytest.mark.parametrize("n_steps", [1, 5])
+def test_dia_quad_leapfrog_matches_pallas_kernel(grid16, n_steps):
+    """The public op on CPU tensors (embedded rows, no ``pos``) against the
+    reference's K6, ``_pallas_dia_leapfrog``, in interpret mode (as
+    tests/test_dia.py:84-111 runs it) on the same rows: rtol/atol 1e-5,
+    f32 arithmetic in another summation order. No launch is counted."""
+    _, fg = grid16
+    x, p, im, emb = _embedded_inputs(fg, np.random.default_rng(7), 9)
+    ins = [emb(a) for a in (x, p, fg.quad_diag.numpy(), fg.quad_h.numpy(), im)]
+    wdia = fg.quad_dia_w.numpy()
+    with pltpu.force_tpu_interpret_mode():
+        want = ref_dia._pallas_dia_leapfrog(
+            *(jnp.asarray(a) for a in ins[:3]), jnp.asarray(wdia),
+            jnp.asarray(ins[3]), jnp.asarray(ins[4]), jnp.asarray(0.07),
+            fg.quad_dia_offsets, n_steps)
+    t = [torch.from_numpy(a) for a in ins]
+    before = dia.dia_quad_leapfrog.launches
+    got = dia.dia_quad_leapfrog(t[0], t[1], t[2], fg.quad_dia_offsets,
+                                torch.from_numpy(wdia), t[3], t[4], 0.07,
+                                n_steps)
+    assert dia.dia_quad_leapfrog.launches == before
+    for a, b, name in zip(got, want, ("x1", "p1", "lp0", "lp1")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5, err_msg=(name, n_steps))
+
+
+@pytest.mark.parametrize("n_steps", [0, 1, 8])
+def test_dia_quad_leapfrog_with_pos_matches_reference(grid16, n_steps):
+    """The public op on latent rows with ``pos`` against the reference's
+    ``dia_quad_leapfrog`` (rtol/atol 1e-5); the plain helper is the same
+    function; ``n_steps = 0`` returns x and p exactly and lp0 twice
+    (tests/test_dia.py:76-81)."""
+    ref, fg = grid16
+    rng = np.random.default_rng(8)
+    n = fg.n_cont
+    x = rng.normal(0.0, 2.0, (5, n)).astype(np.float32)
+    p = rng.normal(size=(5, n)).astype(np.float32)
+    im = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    want = ref_dia.dia_quad_leapfrog(
+        jnp.asarray(x), jnp.asarray(p), ref.quad_diag, ref.quad_dia_offsets,
+        ref.quad_dia_w, ref.quad_h, jnp.asarray(im), 0.05, n_steps,
+        pos=ref.quad_dia_pos)
+    args = (torch.from_numpy(x), torch.from_numpy(p), fg.quad_diag,
+            fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h,
+            torch.from_numpy(im), 0.05, n_steps)
+    before = dia.dia_quad_leapfrog.launches
+    got = dia.dia_quad_leapfrog(*args, pos=fg.quad_dia_pos)
+    plain = dia._plain_dia_quad_leapfrog(*args, pos=fg.quad_dia_pos)
+    assert dia.dia_quad_leapfrog.launches == before
+    for a, b, c, name in zip(got, want, plain, ("x1", "p1", "lp0", "lp1")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5, err_msg=(name, n_steps))
+        assert torch.equal(a, c), name
+    if n_steps == 0:
+        assert np.array_equal(got[0].numpy(), x)
+        assert np.array_equal(got[1].numpy(), p)
+        assert torch.equal(got[2], got[3])
+
+
+def test_dia_quad_leapfrog_has_no_other_route(grid16):
+    """A tensor that is on neither the CPU nor a CUDA device raises; no
+    route falls back to another."""
+    _, fg = grid16
+    x = torch.zeros((2, fg.n_cont), device="meta")
+    with pytest.raises(NotImplementedError, match="no route"):
+        dia.dia_quad_leapfrog(x, x, fg.quad_diag.to("meta"),
+                              fg.quad_dia_offsets, fg.quad_dia_w.to("meta"),
+                              fg.quad_h.to("meta"), x[0], 0.05, 3,
+                              pos=fg.quad_dia_pos.to("meta"))
 
 
 @pytest.mark.parametrize("trial", range(6))

@@ -200,6 +200,46 @@ def test_disc_and_planned_logits_equal_reference(pair):
     np.testing.assert_array_equal(one.numpy(), got[0])
 
 
+def test_tempered_sweep_logits_are_beta_times_reference(pair, monkeypatch):
+    """SMC's tempered Gibbs at a fixed state: the all-rows sweep's first
+    color step draws from β × the reference's ``disc_logits`` (its SMC
+    color step, smc.py:377-392), and the planned sweep's first color
+    class from β × the reference's planned logits of that class, on valid
+    candidates (rtol 1e-5, atol 1e-4 as above); the planned sweep's
+    invalid candidates stay at −1e30."""
+    name, ref, fg = pair
+    beta = 0.37
+    xc, xd = _fixed_states(fg, 4, seed=3 + len(name))
+    seen = []
+    monkeypatch.setattr(hmc, "categorical", lambda gen, logits: (
+        seen.append(logits) or torch.zeros(logits.shape[:-1],
+                                           dtype=torch.int64)))
+    txc, txd = torch.from_numpy(xc), torch.from_numpy(xd)
+    hmc.gibbs_sweep(fg, None, txc, txd.clone(), beta=beta)
+    all_rows = seen[0].numpy()
+    seen.clear()
+    hmc.gibbs_sweep_planned(fg, None, txc, txd.clone(),
+                            beta=torch.tensor(beta))
+    planned = seen[0].numpy()
+    grp = fg.color_plan.groups[0]
+    vars_ = grp.vars_[0].numpy()
+    sizes = fg.meta.np_global["disc_sizes"]
+    valid = np.arange(fg.max_v)[None, :] < sizes[:, None]
+    for i in range(xc.shape[0]):
+        a, b = jnp.asarray(xc[i]), jnp.asarray(xd[i].astype(np.int32))
+        want = beta * np.asarray(ref.disc_logits(a, b))
+        np.testing.assert_allclose(all_rows[i][valid], want[valid],
+                                   rtol=1e-5, atol=1e-4, err_msg=name)
+        wantp = beta * np.asarray(ref_hmc.planned_logits(ref, a, b))
+        for m, v in enumerate(vars_):
+            if v >= fg.n_disc:  # a padded class slot
+                continue
+            ok = valid[v]
+            np.testing.assert_allclose(planned[i, m][ok], wantp[v][ok],
+                                       rtol=1e-5, atol=1e-4, err_msg=name)
+            assert np.all(planned[i, m][~ok] == -1e30)
+
+
 def _exact_marginals_run(fg, sweep, C, S, burn, seed):
     """S sweeps of all chains from fresh states → [S - burn, C, n_disc]."""
     gen = torch.Generator().manual_seed(seed)

@@ -1,4 +1,6 @@
 """The port's NUTS engine held to the JAX reference and to exact oracles.
+NUTS-within-Gibbs on hybrid, non-quadratic models is held to exact
+enumeration (``ExactPosterior``) and closed forms.
 
 Deterministic pieces (bit counts, the U-turn test, the gradient closures,
 one lockstep transition given its uniforms) are fed the same numpy inputs
@@ -27,7 +29,13 @@ import lhvi_tpu_torch.models.toy as toy  # noqa: E402
 from lhvi_tpu_torch import Domain, F, Graph, RV  # noqa: E402
 from lhvi_tpu_torch.engines import hmc, nuts  # noqa: E402
 from lhvi_tpu_torch.ops import nuts_traj  # noqa: E402
-from lhvi_tpu_torch.potentials import GaussianPotential  # noqa: E402
+from lhvi_tpu_torch.potentials import (  # noqa: E402
+    GaussianPotential,
+    MLNPotential,
+    TablePotential,
+)
+from lhvi_tpu_torch.utils.oracle import ExactPosterior  # noqa: E402
+from test_torch_compile import _mirror, _rand_ref_graph, _states  # noqa: E402
 
 
 def _corr_gaussian():
@@ -206,15 +214,78 @@ def test_one_transition_statistics_match_reference():
 
 
 def test_out_of_slice_paths_raise():
+    """Only the mode-swap move is out of the slice now; a hybrid model
+    runs (NUTS-within-Gibbs) and returns its discrete draws."""
     g, _ = toy.hybrid_chain()
     fg = lt.compile_graph(g, "cpu")
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="Slice 2"):
-        nuts.run_nuts(fg, gen, n_chains=2, n_warmup=2, n_samples=2)
+    s_xc, s_xd, _ = nuts.run_nuts(fg, gen, n_chains=2, n_warmup=2,
+                                  n_samples=2)
+    assert s_xc.shape == (2, 2, 2) and s_xd.shape == (2, 2, 1)
     fg, _, _ = _corr_gaussian()
     with pytest.raises(NotImplementedError, match="Slice 7"):
         nuts.run_nuts(fg, gen, nuts.NUTSConfig(mode_swap=True), n_chains=2,
                       n_warmup=2, n_samples=2)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_grad_lp_autograd_matches_reference_vjp(seed):
+    """The general branch of ``_make_grad_lp`` (autograd over
+    ``log_prob_cont_batched`` at fixed discrete states) against the
+    reference's ``jax.vjp`` on fuzzed hybrid graphs (the generator of
+    tests/test_torch_compile.py): rtol 1e-5, atol 1e-5·max|value|, f32
+    sums in another order."""
+    g_ref = _rand_ref_graph(np.random.default_rng(seed))
+    rfg = ref_compile(g_ref)
+    fg = lt.compile_graph(_mirror(g_ref), "cpu")
+    assert not fg.cont_pure_quad and fg.n_disc > 0
+    xc, xd = _states(fg, np.random.default_rng(50 + seed), 16)
+    gr, lpr = ref_nuts._make_grad_lp(rfg, jnp.asarray(xd))(jnp.asarray(xc))
+    gp, lpp = nuts._make_grad_lp(fg, torch.from_numpy(xd).long())(
+        torch.from_numpy(xc))
+    for got, want in ((gp, gr), (lpp, lpr)):
+        want = np.asarray(want)
+        assert np.isfinite(want).all()
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_nuts_hybrid_chain_matches_exact():
+    """tests/test_nuts_map.py:32-41's thresholds: NUTS-within-Gibbs on
+    hybrid_chain (the lockstep loop on the autograd gradient) within 0.1
+    of the exact means and 0.06 of the exact discrete marginal; moments
+    mode fills the discrete marginals and the streamed discrete R̂."""
+    g, (d, x1, x2) = toy.hybrid_chain()
+    exact = ExactPosterior(g, cont_grid=161)
+    fg = lt.compile_graph(g, "cpu")
+    res = nuts.sample(fg, torch.Generator().manual_seed(1), n_chains=256,
+                      n_warmup=150, n_samples=200, collect="moments")
+    assert abs(res.mean(x1) - exact.mean(x1)) < 0.1
+    assert abs(res.mean(x2) - exact.mean(x2)) < 0.1
+    assert np.abs(res.disc_marginal(d) - exact.disc_marginal(d)).max() < 0.06
+    assert res.diag["divergence_rate"] < 0.02
+    assert res.diag["disc_diag_idx"].tolist() == [0]
+    assert abs(float(res.diag["rhat_disc"][0]) - 1.0) < 0.05
+
+
+def test_nuts_samples_mode_on_the_verify_model():
+    """The verify skill's toy model (w ∈ {0, 1}, prior (0.8, 0.2), a link
+    whose normalization over t does not depend on w) in samples mode:
+    P(w) within 0.03 of (0.8, 0.2) and E[t] within 0.4 of 13, the bounds
+    of tests/test_torch_gibbs.py::test_samples_mode_disc_marginal."""
+    w = RV(Domain([0, 1]), name="w")
+    t = RV(Domain([-20, 40], continuous=True), name="t")
+    g = Graph([w, t], [
+        F(TablePotential([0.8, 0.2]), [w]),
+        F(MLNPotential(lambda a: -((a[1] - (15.0 - 10.0 * a[0])) ** 2)
+                       / 50.0, w=1.0, formula_name="link"), [w, t]),
+    ])
+    fg = lt.compile_graph(g, "cpu")
+    res = nuts.sample(fg, torch.Generator().manual_seed(2),
+                      cfg=nuts.NUTSConfig(init_step_size=0.5), n_chains=256,
+                      n_warmup=150, n_samples=200)
+    np.testing.assert_allclose(res.disc_marginal(w), (0.8, 0.2), atol=0.03)
+    assert abs(res.mean(t) - 13.0) < 0.4
 
 
 def test_samples_mode_and_config_mapping():

@@ -31,6 +31,7 @@ from lhvi_tpu_torch.engines import smc  # noqa: E402
 from lhvi_tpu_torch.models import lds, toy  # noqa: E402
 from lhvi_tpu_torch.ops import logpot  # noqa: E402
 from lhvi_tpu_torch.potentials import GaussianPotential  # noqa: E402
+from lhvi_tpu_torch.utils.oracle import ExactPosterior  # noqa: E402
 from lhvi_tpu_torch.utils.convert import smc_state_from_numpy  # noqa: E402
 
 
@@ -251,18 +252,35 @@ def test_smc_banded_grid_through_dia_move():
 
 
 def test_out_of_slice_paths_raise():
-    g, _ = toy.hybrid_chain()
-    fg = lt.compile_graph(g, "cpu")
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="Slice 2"):
-        smc.run_smc(fg, gen, smc.SMCConfig(n_particles=8, n_temps=2))
     g, *_ = lds.kalman_lds(T=3, seed=0)
     fg = lt.compile_graph(g, "cpu")
+    gen = torch.Generator().manual_seed(0)
     for cfg, kw, slice_ in (
             (smc.SMCConfig(mode_swap=True), {}, "Slice 7"),
             (smc.SMCConfig(), {"shard": object()}, "Slice 10")):
         with pytest.raises(NotImplementedError, match=slice_):
             smc.run_smc(fg, gen, cfg, **kw)
+
+
+@pytest.mark.parametrize("route", ["planned", "all_rows"])
+def test_smc_hybrid_chain(route):
+    """tests/test_smc.py:68-77's thresholds: SMC with tempered Gibbs on
+    hybrid_chain within 0.1 of the exact E[x1] and 0.06 of the exact
+    P(d), through the color plan and through the all-rows sweep (the plan
+    taken away); log Z within 0.1 of exact enumeration's."""
+    import dataclasses
+
+    g, (d, x1, x2) = toy.hybrid_chain()
+    exact = ExactPosterior(g, cont_grid=161)
+    fg = lt.compile_graph(g, "cpu")
+    assert fg.color_plan is not None
+    if route == "all_rows":
+        fg = dataclasses.replace(fg, color_plan=None)
+    res = smc.sample(fg, torch.Generator().manual_seed(2),
+                     smc.SMCConfig(n_particles=4096, n_temps=40, n_moves=2))
+    assert abs(res.mean(x1) - exact.mean(x1)) < 0.1
+    assert np.abs(res.disc_marginal(d) - exact.disc_marginal(d)).max() < 0.06
+    assert abs(res.log_z - exact.log_z) < 0.1, (res.log_z, exact.log_z)
 
 
 def test_lds_models_match_reference():

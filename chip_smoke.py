@@ -5,6 +5,11 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --profile`` instead builds the kernels and
+profiles the ``grid128x128`` HMC and ``smc_denoise11`` fused cells with
+``torch.profiler``: device idle share, kernels per unit, the largest
+kernels' shares; PERF.md §5 reads it.)
+
 Phases (any failure raises and the script exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit;
@@ -14,7 +19,10 @@ Phases (any failure raises and the script exits non-zero):
 4. K2 (banded HMC proposal) against its plain version on the 128×128
    bench grid at 1,024 chains, through the wrapper the main path calls:
    one trajectory with given momenta, then the in-kernel Philox momenta's
-   statistics; the inertness of gap lanes on embedded rows;
+   statistics; the folded embedding (pre-embedded rows with random gap
+   lanes give the latent-row call bitwise and move no gap lane); the
+   cluster layout's edge shapes (a 16×16 grid at 37 chains, 1,021 chains,
+   DIA_MAX_EMB lanes);
 5. K3 (NUTS trajectory) against its plain version (the lockstep loop) on
    the same momenta and uniforms table, at the bench shape (n = 82,
    65,536 chains, max_depth 4), at max_depth 8 and at n = 3,246, then its
@@ -22,10 +30,11 @@ Phases (any failure raises and the script exits non-zero):
    at N ∈ {7, 1000, 65,536}; K5 (fused non-quadratic leapfrog) against
    both plain versions (autograd, and the tape twin) on ``robot_map(100)``
    (16,384 chains, 8 steps, untempered and at β = 0.3 against the SMC
-   base) and the 11×11 and 16×16 denoising grids (4,096 chains, 5 steps);
+   base), the 11×11 and 16×16 denoising grids (4,096 chains, 5 steps),
+   ``robot_map(100)`` at 4,099 chains and a 127-node tape;
    K6 (banded leapfrog from given momenta) through ``dia_quad_leapfrog``
-   on the 128×128 grid's latent rows (1,024 chains, 1 and 8 steps)
-   against its plain version in f32 and f64;
+   on the 128×128 grid's latent rows (1,024 chains, 1 and 8 steps) and on
+   K2's edge shapes against its plain version in f32 and f64;
 6. the paths end to end, each with every kernel's launch counter reset
    just before it and read just after: ``hmc.run_hmc`` on the 10×10 grid
    (65,536 chains) and the 128×128 grid (1,024 chains); ``nuts.run_nuts``
@@ -47,7 +56,8 @@ Phases (any failure raises and the script exits non-zero):
 
 The last three lines are the kernels' JSON record (each kernel's error,
 times, launches on its path and its bound on this card from this run's
-shapes), the card's name and power limit, and ``{"ok": true, "device":
+shapes; K2, K5 and K6 also their launch geometry), the card's name and
+power limit, and ``{"ok": true, "device":
 {...}}``. The script imports nothing of JAX.
 """
 
@@ -270,23 +280,28 @@ def phase_k2(dev, rows=128, C=1024):
     log(f"[K2] in-kernel momenta over {C} chains x {n} lanes: "
         + ", ".join(f"{k} {v_:.4g}" for k, v_ in stats.items()))
 
-    # gap lanes, seen only in embedded coordinates: the launcher on rows
-    # whose gap lanes hold random non-zero positions, which must not move
+    # the folded embedding: the launcher on pre-embedded rows with the
+    # identity map, random non-zero positions at the gap lanes, must move
+    # no gap lane and give the latent-row call's lanes and log_acc bitwise
     inv = fg.quad_dia_inv
     gap = torch.ones(n_emb, dtype=torch.bool, device=dev)
     gap[pos] = False
     emb = lambda a: dia._embed_gather(a, inv).contiguous()  # noqa: E731
     xg = emb(x)
     xg[:, gap] = torch.randn((C, int(gap.sum())), generator=gen, device=dev)
-    im_e = emb(im)
-    kargs = (emb(fg.quad_diag), offs, wdia, emb(fg.quad_h), im_e,
-             dia._momentum_std(im_e), eps, steps, 99, 0)
-    x1g, lg = dia._cuda_dia_proposal(xg, *kargs)
+    kargs = (offs, wdia)
+    x1l, ll = dia._cuda_dia_proposal(x, fg.quad_diag, *kargs, fg.quad_h, im,
+                                     eps, steps, 99, 0, inv=inv)
+    x1g, lg = dia._cuda_dia_proposal(xg, emb(fg.quad_diag), *kargs,
+                                     emb(fg.quad_h), emb(im), eps, steps, 99,
+                                     0)
     torch.cuda.synchronize()
     gap_moved = int((x1g[:, gap] != xg[:, gap]).sum())
-    log(f"[K2] gap lanes moved: {gap_moved} (of {C * int(gap.sum())}); same "
-        f"generator state bitwise equal: {bool(torch.equal(x1a, x1b))}; next "
-        f"proposal differs: {not torch.equal(x1a, x1c)}")
+    same_emb = (torch.equal(x1g[:, pos], x1l) and torch.equal(lg, ll))
+    log(f"[K2] gap lanes moved: {gap_moved} (of {C * int(gap.sum())}); "
+        f"pre-embedded rows equal the latent-row call bitwise: {same_emb}; "
+        f"same generator state bitwise equal: {bool(torch.equal(x1a, x1b))}; "
+        f"next proposal differs: {not torch.equal(x1a, x1c)}")
     se = 1.0 / N**0.5
     checks = (
         stats["lane_mean_z_max"] < 5.5,          # |z| of 13k lane means
@@ -295,7 +310,7 @@ def phase_k2(dev, rows=128, C=1024):
         abs(zv - 1) < 5 * (2.0 / N) ** 0.5,
         abs(kurt - 3) < 5 * (24.0 / N) ** 0.5,
         abs(rho_adj) < 5 * se, abs(rho_step) < 5 * se,
-        gap_moved == 0, bool(torch.isfinite(lg).all()),
+        gap_moved == 0, same_emb, bool(torch.isfinite(lg).all()),
         torch.equal(x1a, x1b), not torch.equal(x1a, x1c),
     )
     if not all(checks):
@@ -306,21 +321,117 @@ def phase_k2(dev, rows=128, C=1024):
         return plain(x, pp, torch.float32)[2]
 
     ms = time_ms(lambda: proposal(x))
-    kernel_ms = time_ms(lambda: dia._cuda_dia_proposal(xg, *kargs))
+    kernel_ms = time_ms(lambda: dia._cuda_dia_proposal(
+        x, fg.quad_diag, *kargs, fg.quad_h, im, eps, steps, 99, 0, inv=inv))
     plain_ms = time_ms(plain_proposal)
-    log(f"[K2] proposal (momenta + {steps}-step trajectory + energies), latent "
-        f"rows in and out: dia_hmc_proposal {ms:.4f} ms (kernel alone on "
-        f"embedded rows {kernel_ms:.4f} ms), plain {plain_ms:.4f} ms")
-    # the kernel's embedded rows: x in and x1 out, the K + 4 lane rows,
-    # log_acc; (K + 1) multiply-adds per lane per matvec, steps + 1 matvecs
     K = len(offs)
+    geo = dia.dia_launch(n_emb, K)
+    log(f"[K2] proposal (momenta + {steps}-step trajectory + energies), latent "
+        f"rows in and out: dia_hmc_proposal {ms:.4f} ms (kernel alone "
+        f"{kernel_ms:.4f} ms), plain {plain_ms:.4f} ms; geometry {geo}")
+    dia_edge_cases(dev, "K2")
+    # the latent rows x in and x1 out, the lane rows (wdia, inv) and the
+    # latent diag, h and inv_mass, log_acc; (K + 1) multiply-adds per lane
+    # per matvec, steps + 1 matvecs
     return dict(max_abs_err=abs_x, ms=ms, plain_ms=plain_ms,
-                **bound(4 * (2 * C * n_emb + (K + 4) * n_emb + C + 1),
-                        2 * (K + 1) * C * n_emb * (steps + 1)))
+                **bound(nbytes(x, x1l, wdia, inv, fg.quad_diag, fg.quad_h,
+                               im, ll, eps),
+                        2 * (K + 1) * C * n_emb * (steps + 1)),
+                geometry=geometry(geo))
+
+
+def geometry(geo) -> dict:
+    """A kernel's launch geometry for the kernels line."""
+    out = dict(threads=geo.threads, chains_per_block=geo.chains,
+               smem_bytes=geo.smem)
+    if hasattr(geo, "cluster"):
+        out.update(cluster_blocks=geo.cluster, lanes_per_block=geo.slice)
+    return out
+
+
+def banded(dev, n, rows=128):
+    """A banded target on n lanes with no embedding (a grid's 4-neighbour
+    stencil ``rows`` wide, diagonally dominant, weights off the row 0):
+    diag, offsets, wdia, h."""
+    import torch
+
+    offs = (-rows, -1, 1, rows)
+    i = torch.arange(n, device=dev)
+    wdia = torch.stack([((i + o >= 0) & (i + o < n)).float() * -1.0
+                        for o in offs]).contiguous()
+    g = torch.Generator(dev).manual_seed(n)
+    return (torch.full((n,), 4.5, device=dev), offs, wdia,
+            torch.randn((n,), generator=g, device=dev))
+
+
+def dia_edge_cases(dev, which):
+    """K2 (exact mode, through ``dia_hmc_proposal``) or K6 (through
+    ``dia_quad_leapfrog``) against the plain version in f32 and f64 on
+    the cluster layout's edge shapes: a small grid (8 chains in one
+    block), a chain count that is not a multiple of the chains per block,
+    and DIA_MAX_EMB lanes (clusters of 8 blocks, 4 chains)."""
+    import torch
+
+    from lhvi_tpu_torch.ops import dia
+
+    small = k6_grid(dev, 16)
+    big = k6_grid(dev)
+    cases = (
+        ("16x16 grid, 37 chains", (small.quad_diag, small.quad_dia_offsets,
+                                   small.quad_dia_w, small.quad_h),
+         small.quad_dia_pos, 37),
+        ("128x128 grid, 1,021 chains", (big.quad_diag, big.quad_dia_offsets,
+                                        big.quad_dia_w, big.quad_h),
+         big.quad_dia_pos, 1021),
+        (f"{dia.DIA_MAX_EMB} lanes, 5 chains",
+         banded(dev, dia.DIA_MAX_EMB), None, 5))
+    # phase_k2's and phase_k6's tolerances (energies: K2's log_acc against
+    # |lp0| + ke0, K6's lp against max(1, |plain|))
+    tol_x, tol_l32, tol_l64 = (1e-4, 1e-5, 1e-7 if which == "K2" else 2e-6)
+    for name, (diag, offs, wdia, h), pos, C in cases:
+        n = diag.shape[0]
+        gen = torch.Generator(dev).manual_seed(C)
+        im = 0.5 + torch.rand((n,), generator=gen, device=dev)
+        x = 2.0 * torch.randn((C, n), generator=gen, device=dev)
+        p = torch.randn((C, n), generator=gen, device=dev) / torch.sqrt(im)
+        eps = torch.full((), 0.05, device=dev)
+        consts = (diag, offs, wdia, h, im, eps)
+        inv = None if pos is None else dia._inv_of(pos, n, wdia.shape[1])
+        geo = dia.dia_launch(wdia.shape[1], len(offs))
+        errs = []
+        for dt in (torch.float32, torch.float64):
+            cast = [a.to(dt) if isinstance(a, torch.Tensor) else a
+                    for a in (x, p) + consts]
+            x1p, p1p, lp0, lp1 = dia._plain_dia_quad_leapfrog(*cast, 6,
+                                                             pos=pos)
+            if which == "K6":
+                got = dia.dia_quad_leapfrog(x, p, *consts, 6, pos=pos)
+                errs.append((max(rel_err(got[0], x1p), rel_err(got[1], p1p)),
+                             max(rel_err(got[2], lp0), rel_err(got[3], lp1))))
+            else:
+                im_d = cast[6]
+                ke = lambda q: 0.5 * torch.sum(im_d[None] * q * q, -1)  # noqa: E731
+                lacc = torch.clamp((lp1 - lp0) + (ke(cast[1]) - ke(p1p)),
+                                   max=0.0)
+                x1, la = dia.dia_hmc_proposal(None, x, diag, offs, wdia, h, im,
+                                              eps, 6, pos=pos, inv=inv, p0=p)
+                scale = lp0.abs() + ke(cast[1])
+                errs.append((rel_err(x1, x1p), float(
+                    ((la.double() - lacc.double()).abs() / scale.double())
+                    .max())))
+        torch.cuda.synchronize()
+        log(f"[{which}] edge case {name}, 6 steps, geometry {tuple(geo)}: x "
+            f"max rel err {errs[0][0]:.3e} vs f32, {errs[1][0]:.3e} vs f64; "
+            f"energies {errs[0][1]:.3e} vs f32, {errs[1][1]:.3e} vs f64")
+        if not (max(errs[0][0], errs[1][0]) <= tol_x
+                and errs[0][1] <= tol_l32 and errs[1][1] <= tol_l64):
+            raise AssertionError(f"{which} disagrees with its plain version "
+                                 f"on {name}")
 
 
 def k6_grid(dev, rows=128):
-    """The 128×128 evidence grid of phase_k2 on the banded path."""
+    """The 128×128 evidence grid of phase_k2 (or another width) on the
+    banded path."""
     from lhvi_tpu_torch import compile_graph
     from lhvi_tpu_torch.models.toy import gaussian_grid
 
@@ -386,22 +497,25 @@ def phase_k6(dev, C=1024):
         if steps == 8:
             ms = time_ms(lambda: dia.dia_quad_leapfrog(x, p, *consts, 8,
                                                        pos=pos))
-            kin = [dia._embed(a, pos, n_emb).contiguous()
-                   for a in (x, p, fg.quad_diag, fg.quad_h, im)]
+            inv = fg.quad_dia_inv
             kernel_ms = time_ms(lambda: dia._cuda_dia_leapfrog(
-                kin[0], kin[1], kin[2], offs, wdia, kin[3], kin[4], eps, 8))
+                x, p, *consts, 8, inv=inv))
             plain_ms = time_ms(lambda: dia._plain_dia_quad_leapfrog(
                 x, p, *consts, 8, pos=pos))
+            geo = dia.dia_launch(n_emb, K)
             log(f"[K6] 8-step trajectory, latent rows in and out: "
-                f"dia_quad_leapfrog {ms:.4f} ms (kernel alone on embedded "
-                f"rows {kernel_ms:.4f} ms), plain {plain_ms:.4f} ms")
-            # the kernel's embedded rows: x, p in and x1, p1 out, the
-            # K + 3 lane rows, lp0 and lp1; (K + 1) multiply-adds per lane
-            # per matvec, 9 matvecs
+                f"dia_quad_leapfrog {ms:.4f} ms (kernel alone "
+                f"{kernel_ms:.4f} ms), plain {plain_ms:.4f} ms; geometry "
+                f"{geo}")
+            # the latent rows x, p in and x1, p1 out, the lane rows (wdia,
+            # inv) and the latent diag, h and inv_mass, lp0 and lp1;
+            # (K + 1) multiply-adds per lane per matvec, 9 matvecs
             record = dict(max_abs_err=abs32, ms=ms, plain_ms=plain_ms,
-                          **bound(4 * (4 * C * n_emb + (K + 3) * n_emb
-                                       + 2 * C + 1),
-                                  2 * (K + 1) * C * n_emb * 9))
+                          **bound(nbytes(x, p, *got, wdia, inv, fg.quad_diag,
+                                         fg.quad_h, im, eps),
+                                  2 * (K + 1) * C * n_emb * 9),
+                          geometry=geometry(geo))
+    dia_edge_cases(dev, "K6")
     return record
 
 
@@ -636,6 +750,21 @@ def denoise_fg(dev, rows=11):
     return compile_graph(denoise_grid(rows, rows, seed=0)[0], dev)
 
 
+def long_tape_fg(dev):
+    """A 127-node tape (the tracer holds at most 128): an MLN formula of
+    18 squared products on the four edges of a 4-cycle, two colours."""
+    import lhvi_tpu_torch as lt
+    from lhvi_tpu_torch.potentials import MLNPotential
+
+    dom = lt.Domain([-2.0, 2.0], continuous=True)
+    xs = [lt.RV(dom, name=f"x{i}") for i in range(4)]
+    return lt.compile_graph(lt.Graph(xs, [lt.F(MLNPotential(
+        lambda a: -sum(((a[0] - 0.1 * k) * (a[1] + 0.05 * k)) ** 2
+                       for k in range(18)) / 50.0 - 0.01 * a[0],
+        w=0.7, formula_name="long"), [xs[i], xs[(i + 1) % 4]])
+        for i in range(4)]), dev)
+
+
 def phase_k5(dev, C_robot=16384, C_denoise=4096):
     """K5 against both plain versions (autograd over
     ``log_prob_cont_batched``, and the tape twin ``tape_energy_grad``) on
@@ -661,7 +790,10 @@ def phase_k5(dev, C_robot=16384, C_denoise=4096):
              ("robot100 tempered", fg_r, C_robot, 8, 0.05, 0.3),
              ("denoise11x11", fg_d, C_denoise, 5, 0.03, None),
              ("denoise16x16 (past the reference's gate)", fg_d16, C_denoise,
-              5, 0.03, None))
+              5, 0.03, None),
+             ("robot100 at 4,099 chains (3 in the last block)", fg_r, 4099,
+              8, 0.05, None),
+             ("127-node tape", long_tape_fg(dev), 4099, 5, 0.04, None))
     record = None
     for name, fg, C, steps, eps, beta in cases:
         plan = logpot.logpot_plan_cached(fg)  # what plan="auto" runs
@@ -709,9 +841,11 @@ def phase_k5(dev, C_robot=16384, C_denoise=4096):
                                                          **kw))
         tape_ms = time_ms(lambda: logpot.tape_logpot_leapfrog(*args, plan=plan,
                                                               **kw))
+        geo = logpot.k5_launch(plan, C)
         log(f"[K5] {name}: n={n} C={C} {steps} steps, {plan.n_rows} factor "
-            f"rows ({plan.n_active} with a latent slot), tapes "
-            f"{[len(b.tape) for b in plan.buckets]} nodes; " + "; ".join(msg)
+            f"rows ({plan.n_active} with a latent slot, {plan.n_colors} "
+            f"colours), tapes {[len(b.tape) for b in plan.buckets]} nodes, "
+            f"geometry {geo}; " + "; ".join(msg)
             + f"; max abs err {abs_err:.3e}; logpot_leapfrog {ms:.4f} ms "
             f"(kernel alone {kern_ms:.4f} ms), plain autograd {auto_ms:.4f} "
             f"ms, plain tape {tape_ms:.4f} ms")
@@ -721,7 +855,8 @@ def phase_k5(dev, C_robot=16384, C_denoise=4096):
         if record is None:  # the robot path's shape
             record = dict(max_abs_err=abs_err, ms=ms, plain_ms=auto_ms,
                           **bound(nbytes(x, p, dv, im, args[5], *got),
-                                  k5_flops(plan, C, steps)))
+                                  k5_flops(plan, C, steps)),
+                          geometry=geometry(geo))
     return record
 
 
@@ -1241,6 +1376,117 @@ def check_moments(name, moments, diag, mean_x, spot, var_x):
         raise AssertionError(f"{name}: moments off the exact oracle")
 
 
+def profile_window(label, run, units, unit, smi):
+    """One ``run()`` under ``torch.profiler`` after a warm call, and three
+    unprofiled ones: kernels per unit, device idle share (1 − summed
+    device time / host wall time of the profiled run; one stream, so
+    kernels do not overlap) and the largest kernels' shares of the device
+    time."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dt, spread = timed_runs(lambda seed: run())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us()
+    busy = sum(t for _, t in by_name.values())
+    count = sum(c for c, _ in by_name.values())
+    if busy <= 0:
+        log(f"[profile] {label}: the profiler recorded no device time")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"[profile] {label}: unprofiled {dt / units * 1e3:.4f} ms per {unit} "
+        f"(rep spread {spread:.3f}); profiled {wall_us / units / 1e3:.4f} ms "
+        f"per {unit}, device busy {busy / units / 1e3:.4f} ms per {unit}, "
+        f"device idle {1 - busy / wall_us:.4f}, {count / units:.2f} device "
+        f"operations per {unit}; on {smi}")
+    for name, (c, t) in top:
+        log(f"[profile]   {t / busy:.4f} of device time, {c / units:.2f} per "
+            f"{unit}, {t / c / 1e3:.4f} ms each: {name[:110]}")
+
+
+def profile_cells(dev, smi):
+    """``--profile``: the ``grid128x128`` HMC cell (1,024 chains, 20
+    transitions, K2) and the ``smc_denoise11`` fused cell (16,384
+    particles, a fixed schedule of 50 temperatures, K5), as PERF.md §5
+    reads them."""
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import hmc, smc
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+
+    g, _ = gaussian_grid(128, 128, seed=1, evidence_frac=0.05)
+    fg = compile_graph(g, dev, quad_max_n=4096)
+    cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.05)
+
+    def grid():
+        m, _, _ = hmc.run_hmc(fg, torch.Generator(dev).manual_seed(0), cfg,
+                              n_chains=1024, n_warmup=0, n_samples=20,
+                              collect="moments", stream_diag=False)
+        float(m["mean"][0])
+
+    profile_window("grid128x128 HMC, 1,024 chains x 20 samples", grid, 20,
+                   "transition", smi)
+    fgd = denoise_fg(dev)
+    scfg = smc.SMCConfig(n_particles=16384, n_temps=50, adaptive=False,
+                         fused_logpot=True)
+
+    def denoise():
+        float(smc.sample(fgd, torch.Generator(dev).manual_seed(0), scfg).log_z)
+
+    profile_window("smc_denoise11 fused, 16,384 particles, 50 temperatures",
+                   denoise, 50, "temperature", smi)
+    step_costs(dev, smi)
+
+
+def step_costs(dev, smi):
+    """K2 and K5 alone (their launchers, CUDA-event medians) at zero steps
+    and at the main path's steps: what a call costs before its first step,
+    and what each step adds."""
+    import torch
+
+    from lhvi_tpu_torch.ops import dia, logpot
+
+    fg = k6_grid(dev)
+    n = fg.n_cont
+    gen = torch.Generator(dev).manual_seed(0)
+    im = 0.5 + torch.rand((n,), generator=gen, device=dev)
+    eps = torch.full((), 0.05, device=dev)
+    for C in (128, 1024):
+        x = torch.randn((C, n), generator=gen, device=dev)
+        ms = [time_ms(lambda: dia._cuda_dia_proposal(
+            x, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h, im,
+            eps, s, 99, 0, inv=fg.quad_dia_inv)) for s in (0, 1, 8)]
+        log(f"[profile] K2 alone, 128x128 grid, C={C}: 0 / 1 / 8 steps "
+            f"{ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f} ms; on {smi}")
+    for name, fgk, C, steps in (("robot100", robot_fg(dev)[0], 16384, 8),
+                                ("denoise11x11", denoise_fg(dev), 4096, 5)):
+        plan = logpot.kernel_plan(fgk)
+        x = fgk.cont_lo + (fgk.cont_hi - fgk.cont_lo) * torch.rand(
+            (C, fgk.n_cont), generator=gen, device=dev)
+        p = torch.randn((C, fgk.n_cont), generator=gen, device=dev)
+        xd = torch.zeros((C, fgk.n_disc), dtype=torch.int64, device=dev)
+        imk = torch.ones((fgk.n_cont,), device=dev)
+        use_base, b_, mid, is2 = logpot._tempering(fgk, dev, None, None, None)
+        dv = plan.disc_values(xd)
+        ms = [time_ms(lambda: logpot._cuda_logpot_leapfrog(
+            plan, x, p, dv, imk, eps, b_, mid, is2, s, use_base))
+            for s in (0, 1, steps)]
+        log(f"[profile] K5 alone, {name}, C={C}: 0 / 1 / {steps} steps "
+            f"{ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f} ms; on {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -1271,6 +1517,9 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("[build] " + line.strip())
+    if "--profile" in sys.argv[1:]:
+        profile_cells(dev, smi)
+        return 0
 
     t0 = time.perf_counter()
     k1 = phase_k1(dev)

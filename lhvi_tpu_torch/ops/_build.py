@@ -36,13 +36,16 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     # x, p, J, h, inv_mass, eps, x_out, p_out, C, n, n_steps, stream
     "lhvi_quad_leapfrog": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, diag, wdia, h, inv_mass, std, p0, eps, x_out, log_acc,
-    # C, n_emb, K, offsets (host int[K]), n_steps, seed, offset, stream
-    "lhvi_dia_proposal": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _P, _I, _U64, _U64, _P),
-    # x, p, diag, wdia, h, inv_mass, eps, x_out, p_out, lp0, lp1,
-    # C, n_emb, K, offsets (host int[K]), n_steps, stream
-    "lhvi_dia_leapfrog": (_P,) * 11 + (_I, _I, _I, _P, _I, _P),
+    # x, diag, wdia, h, inv_mass, inv (or null), p0 (or null), eps, x_out,
+    # log_acc, C, n, n_emb, K, offsets (host int[K]), n_steps, seed,
+    # offset, cluster, threads, chains, slice, smem, stream
+    "lhvi_dia_proposal": (_P,) * 10 + (_I,) * 4 + (_P, _I, _U64, _U64)
+                         + (_I,) * 5 + (_P,),
+    # x, p, diag, wdia, h, inv_mass, inv (or null), eps, x_out, p_out, lp0,
+    # lp1, C, n, n_emb, K, offsets (host int[K]), n_steps, cluster,
+    # threads, chains, slice, smem, stream
+    "lhvi_dia_leapfrog": (_P,) * 12 + (_I,) * 4 + (_P, _I) + (_I,) * 5
+                         + (_P,),
     # q0, p0, J, h, inv_mass, eps, uniforms (or null), q_prop, sum_acc,
     # n_leaf, depth, diverged, scratch (or null), C, n, max_depth, seed,
     # offset, stream
@@ -53,10 +56,11 @@ _SIGNATURES = {
     # log_w, lw_norm, cum, stats (step_z, ess), N, stream
     "lhvi_weight_pipeline": (_P, _P, _P, _P, _I, _P),
     # x, p, inv_mass, eps, beta, J, h, mid, is2 (null when absent),
-    # row_bucket, bucket_tape, tape op/a/b/c, cidx, cconst, prm, w,
-    # disc values (or null), csr_ptr, csr_ent, x_out, p_out, e0, e1,
-    # C, n, n_active, n_rows, acm, adm, pm, n_steps, stream
-    "lhvi_logpot_leapfrog": (_P,) * 26 + (_I,) * 8 + (_P,),
+    # tape (int4 nodes), bucket_tape, row_order, segs, color_ptr, cidx,
+    # cconst, prm, w, disc values (or null), x_out, p_out, e0, e1,
+    # C, n, n_rows, n_tape, n_buckets, n_segs, n_colors, acm, adm, pm,
+    # max_tape, n_steps, threads, chains, stage, j_smem, smem, stream
+    "lhvi_logpot_leapfrog": (_P,) * 23 + (_I,) * 17 + (_P,),
 }
 
 

@@ -1,124 +1,542 @@
 // The banded (DIA) trajectory that K2 (dia_proposal.cu) and K6
 // (dia_leapfrog.cu) share, so that the two kernels cannot drift apart.
 //
-// One block of kThreads threads owns one chain. Its positions xs and
-// momenta ms live in shared memory for the whole trajectory; each lane i
-// is owned by threads i, i + kThreads, ... so a lane's momentum is only
-// ever touched by its owner. J x = diag*x + sum_k w_k * x[i + o_k], with the
-// shifted index wrapped modulo the row width: a wrapped neighbour always
-// meets a structural-zero weight (ops/dia.py::ell_to_dia asserts it), as
-// in the reference's circular roll. lp = 1/2 sum x(h + g) with g = h - J x;
-// per-thread partial sums are taken in double.
+// Position-Verlet on J x = diag*x + sum_k w_k * x[i + o_k] in embedded
+// coordinates (n_emb lanes), with the shifted index wrapped modulo n_emb: a
+// wrapped neighbour always meets a structural-zero weight
+// (ops/dia.py::ell_to_dia asserts it), as in the reference's circular roll.
+// lp = 1/2 sum x(h + g) with g = h - J x, summed in double.
+//
+// Layout (the geometry comes from ops/dia.py::dia_launch, and
+// check_launch() holds the launcher to it):
+//   - A thread block cluster of S blocks (S in 1, 2, 4, 8) splits the
+//     embedded row into S slices of `slice` lanes, one per block, and
+//     integrates CB chains (1, 2, 4 or 8) at once. At the 128x128 grid
+//     (16,384 lanes, K = 4): S = 8, slice = 2,048, CB = 8, 512 threads.
+//   - Each block stages its slice's lane constants (diag, h, im, the latent
+//     index and K rows of wdia) in shared memory ONCE per launch, reading
+//     diag, h and im through the inverse embedding: lane i takes latent
+//     inv[i], or 0 at a gap lane. A persistent cluster then walks over
+//     chain groups, so the constants are read from device memory once per
+//     block and from shared memory once per lane and step for all CB
+//     chains.
+//   - Positions live in shared memory as [lane][CB] (one vector load gives
+//     a lane for every chain), double-buffered: step s reads x_s and writes
+//     x_{s+1}, so a step costs ONE cluster barrier. A neighbour in another
+//     block's slice is read through distributed shared memory.
+//   - Momenta live in registers: lane i of a slice is owned by thread
+//     i mod T for the whole trajectory, so no other thread touches its
+//     momentum. A thread holds at most kRegLanes lane-chains; blocks have
+//     at most 512 threads, so that 128 registers a thread hold them
+//     without spilling.
+//   - Chain rows are read and written in latent coordinates: lane i reads
+//     x[c, inv[i]] (0 at a gap lane) and writes x1 back to the same place;
+//     gap lanes have diag = h = im = 0 and zero weights, so they stay 0.
+// Per-chain sums: each thread adds its lanes' terms per chain, each warp
+// reduces them with a fixed shuffle pattern (warp_sums) into shared
+// memory, the block adds its warps in warp order, and rank 0 adds the S
+// blocks' partials in rank order, so every run gives the same bits.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <mutex>
 
 namespace lhvi_dia {
 
-constexpr int kThreads = 1024;
+namespace cg = cooperative_groups;
+
 constexpr int kMaxOffsets = 8;
-constexpr int kSmemLimit = 227 * 1024;
+constexpr int kMaxThreads = 512;
+constexpr int kRegLanes = 32;   // momenta a thread holds: lanes x chains
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr size_t kSmemLimit = 227 * 1024;
 
 struct Offsets {
   int o[kMaxOffsets];
 };
 
-// (J x)[i] on the chain's shared-memory row.
-__device__ __forceinline__ float band_matvec(const float* xs, int i, int n,
-                                             const float* __restrict__ diag,
-                                             const float* __restrict__ wdia,
-                                             int K, const Offsets& offs) {
-  float y = diag[i] * xs[i];
-  for (int k = 0; k < K; ++k) {
-    int j = i + offs.o[k];
-    if (j < 0) j += n; else if (j >= n) j -= n;
-    y += wdia[(size_t)k * n + i] * xs[j];
-  }
-  return y;
+struct Args {
+  const float* x;     // [C, n] latent positions
+  const float* p;     // [C, n] latent momenta (K6; K2's test mode) or null
+  const float* diag;  // [n] latent
+  const float* wdia;  // [K, n_emb] embedded
+  const float* h;     // [n] latent
+  const float* im;    // [n] latent inverse mass
+  const int64_t* inv; // [n_emb] latent index, n at a gap lane; null: identity
+  const float* eps;   // device scalar
+  float* xo;          // [C, n]
+  float* po;          // [C, n] (K6) or null
+  float* out0;        // K2: log_acc [C]; K6: lp0 [C]
+  float* out1;        // K6: lp1 [C]
+  int C, n, n_emb, K, n_steps, slice;
+  Offsets offs;
+  uint2 key;          // K2's Philox key
+  uint32_t off_lo, off_hi;
+};
+
+// Dynamic shared memory of a block: per-warp, per-block and (rank 0)
+// per-cluster double partials, the slice's lane constants and two
+// position buffers.
+inline size_t smem_bytes(int K, int chains, int slice, int threads) {
+  return sizeof(double) * (size_t)chains *
+             (2 * (threads / 32) + 2 + 2 * kMaxCluster) +
+         sizeof(float) * (size_t)slice * (4 + K + 2 * chains);
 }
 
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read from a previous call
-  if (lane == 0) red[warp] = v;
+  for (int r = 0; r < 10; ++r) {
+    uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+    uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += W0;
+    k.y += W1;
+  }
+  return c;
+}
+
+// 32 random bits -> uniform in (0, 1] (24-bit grid; never 0).
+__device__ __forceinline__ float uniform_open0(uint32_t bits) {
+  return (float)((bits >> 8) + 1u) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b,
+                                           float* z0, float* z1) {
+  float r = sqrtf(-2.0f * logf(uniform_open0(a)));
+  float s, c;
+  sincospif(2.0f * uniform_open0(b), &s, &c);
+  *z0 = r * c;
+  *z1 = r * s;
+}
+
+// A lane's values for all CB chains: one 16-, 8- or 4-byte access each.
+template <int CB>
+__device__ __forceinline__ void ld(const float* p, float (&v)[CB]) {
+  if constexpr (CB % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < CB; c += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + c);
+      v[c] = t.x; v[c + 1] = t.y; v[c + 2] = t.z; v[c + 3] = t.w;
+    }
+  } else if constexpr (CB == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int CB>
+__device__ __forceinline__ void st(float* p, const float (&v)[CB]) {
+  if constexpr (CB % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < CB; c += 4)
+      *reinterpret_cast<float4*>(p + c) =
+          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+  } else if constexpr (CB == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// The warp's sums of v[c] for all CB chains in 4 + 2 + 1 + 2 (CB = 8)
+// double shuffles instead of CB butterflies of 5: at each of the first
+// log2(CB) levels a lane keeps half of its values and adds its partner's
+// half of them, then a butterfly over the remaining lanes. Writes chain
+// c's sum to out[c] from one lane; the pattern is fixed, so every run
+// gives the same bits.
+template <int CB>
+__device__ __forceinline__ void warp_sums(double (&v)[CB], int lane,
+                                          double* out) {
+  int c = 0;
+  int o = 16;
+#pragma unroll
+  for (int k = CB; k > 1; k >>= 1, o >>= 1) {
+    const bool upper = (lane & o) != 0;
+#pragma unroll
+    for (int j = 0; j < k / 2; ++j) {
+      const double send = upper ? v[j] : v[j + k / 2];
+      const double keep = upper ? v[j + k / 2] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    if (upper) c += k / 2;
+  }
+  double s = v[0];
+#pragma unroll
+  for (int r = o; r > 0; r >>= 1) s += __shfl_xor_sync(0xffffffffu, s, r);
+  if ((lane & (2 * o - 1)) == 0) out[c] = s;
+}
+
+// The whole trajectory for every chain group of the launch. kProposal: K2
+// (momenta drawn in-kernel unless a.p is given, log_acc out); otherwise K6
+// (momenta from a.p; x1, p1, lp0, lp1 out).
+template <int CB, bool kProposal>
+__device__ __forceinline__ void run(const Args& a) {
+  constexpr int ML = kRegLanes / CB;  // lanes a thread owns, at most
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int S = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int tid = threadIdx.x, T = blockDim.x, W = T >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n = a.n_emb, K = a.K, slice = a.slice;
+  const int lo = rank * slice;
+  const int own = max(0, min(slice, n - lo));  // this block's lanes
+  const int lpt = (own + T - 1) / T;           // <= ML (check_launch)
+
+  double* red = reinterpret_cast<double*>(smem_raw);  // [2][W][CB]
+  double* part = red + 2 * W * CB;                     // [2][CB]
+  double* gath = part + 2 * CB;           // rank 0: [kMaxCluster][2][CB]
+  float* cdiag = reinterpret_cast<float*>(gath + 2 * kMaxCluster * CB);
+  float* ch = cdiag + slice;
+  float* cim = ch + slice;
+  int* cinv = reinterpret_cast<int*>(cim + slice);   // latent index or -1
+  float* cw = reinterpret_cast<float*>(cinv + slice);  // [K][slice]
+  float* buf0 = cw + (size_t)K * slice;                // [slice][CB]
+  float* buf1 = buf0 + (size_t)slice * CB;
+
+  for (int i = tid; i < own; i += T) {
+    const int g = lo + i;
+    const int v = a.inv != nullptr ? (int)a.inv[g] : g;
+    const bool lat = v < a.n;
+    cdiag[i] = lat ? a.diag[v] : 0.f;
+    ch[i] = lat ? a.h[v] : 0.f;
+    cim[i] = lat ? a.im[v] : 0.f;
+    cinv[i] = lat ? v : -1;
+    for (int k = 0; k < K; ++k) cw[k * slice + i] = a.wdia[(size_t)k * n + g];
+  }
+  const float eps = *a.eps;
   __syncthreads();
-  double t = 0.0;
-  if (warp == 0) {
-    t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
-  }
-  return t;  // valid in thread 0
-}
 
-// Position-Verlet from (xs, ms) = (x0, p0), both in shared memory and
-// visible to the block (the caller's barrier). Adds this thread's lanes'
-// x0(h + g0) to *lp0 and im*p0^2 to *ke0. On return, after a barrier, xs
-// holds x1 and ms the momentum before the last half kick (p0 unchanged
-// when n_steps == 0); end_lane finishes each lane.
-__device__ __forceinline__ void trajectory(
-    float* xs, float* ms, int n, const float* __restrict__ diag,
-    const float* __restrict__ wdia, const float* __restrict__ h,
-    const float* __restrict__ im, int K, const Offsets& offs, float eps,
-    int n_steps, double* lp0, double* ke0) {
-  const int tid = threadIdx.x;
-  // start: lp0, ke0 and the first half-kick (positions are only read)
-  for (int i = tid; i < n; i += kThreads) {
-    float g = h[i] - band_matvec(xs, i, n, diag, wdia, K, offs);
-    float m = ms[i];
-    *lp0 += (double)(xs[i] * (h[i] + g));
-    *ke0 += (double)(im[i] * m * m);
-    if (n_steps > 0) ms[i] = m + 0.5f * eps * g;
-  }
-  if (n_steps > 0) {
-    for (int s = 0; s < n_steps - 1; ++s) {
-      __syncthreads();
-      for (int i = tid; i < n; i += kThreads) xs[i] += eps * im[i] * ms[i];
-      __syncthreads();
-      for (int i = tid; i < n; i += kThreads) {
-        float g = h[i] - band_matvec(xs, i, n, diag, wdia, K, offs);
-        ms[i] += eps * g;
+  // x[j] of every chain of the group, j an embedded lane of any slice
+  auto fetch = [&](float* buf, int j, float (&v)[CB]) {
+    const int jl = j - lo;
+    if ((unsigned)jl < (unsigned)slice) {
+      ld<CB>(buf + (size_t)jl * CB, v);
+    } else {
+      const int r = j / slice;
+      const float* rb = cl.map_shared_rank(buf, (unsigned)r);
+      ld<CB>(rb + (size_t)(j - r * slice) * CB, v);
+    }
+  };
+  // x of lane i (local) and g = h - J x, for every chain
+  auto grad = [&](float* buf, int i, float (&x)[CB], float (&g)[CB]) {
+    ld<CB>(buf + (size_t)i * CB, x);
+    const float d = cdiag[i];
+#pragma unroll
+    for (int c = 0; c < CB; ++c) g[c] = d * x[c];
+#pragma unroll
+    for (int k = 0; k < kMaxOffsets; ++k) {
+      if (k >= K) break;
+      int j = lo + i + a.offs.o[k];
+      if (j < 0) j += n; else if (j >= n) j -= n;
+      const float w = cw[k * slice + i];
+      float nb[CB];
+      fetch(buf, j, nb);
+#pragma unroll
+      for (int c = 0; c < CB; ++c) g[c] += w * nb[c];
+    }
+    const float hh = ch[i];
+#pragma unroll
+    for (int c = 0; c < CB; ++c) g[c] = hh - g[c];
+  };
+  const int n_groups = (a.C + CB - 1) / CB;
+  const int n_clusters = gridDim.x / S;
+  for (int grp = blockIdx.x / S; grp < n_groups; grp += n_clusters) {
+    const int c0 = grp * CB;
+    // x0 -> buf0, 0 at gap lanes and for chains past C (unrolled over a
+    // thread's lanes, so that all of its loads are in flight at once)
+#pragma unroll
+    for (int l = 0; l < ML; ++l) {
+      const int i = tid + l * T;
+      if (l < lpt && i < own) {
+        const int v = cinv[i];
+        float xv[CB];
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          xv[c] = (v >= 0 && c0 + c < a.C) ? a.x[(size_t)(c0 + c) * a.n + v]
+                                           : 0.f;
+        st<CB>(buf0 + (size_t)i * CB, xv);
       }
     }
-    __syncthreads();
-    for (int i = tid; i < n; i += kThreads) xs[i] += eps * im[i] * ms[i];
-  }
-  __syncthreads();
-}
+    float m[ML][CB];
+    if (a.p != nullptr) {
+#pragma unroll
+      for (int l = 0; l < ML; ++l) {
+        const int i = tid + l * T;
+        const int v = (l < lpt && i < own) ? cinv[i] : -1;
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          m[l][c] = (v >= 0 && c0 + c < a.C)
+                        ? a.p[(size_t)(c0 + c) * a.n + v] : 0.f;
+      }
+    } else {
+      // Philox4x32-10, counter (lane quad, chain, offset): std * z per lane
+      // into buf1 (free until the first drift), then into registers
+      const int nq = (own + 3) / 4;
+      for (int e = tid; e < nq * CB; e += T) {
+        const int ql = e / CB, c = e - ql * CB;
+        const uint4 r = philox4x32_10(
+            make_uint4((uint32_t)((lo >> 2) + ql), (uint32_t)(c0 + c),
+                       a.off_lo, a.off_hi), a.key);
+        float z[4];
+        box_muller(r.x, r.y, &z[0], &z[1]);
+        box_muller(r.z, r.w, &z[2], &z[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 4 * ql + j;
+          if (i < own) {
+            const float imv = cim[i];
+            const float sd = imv > 0.f ? sqrtf(1.0f / fmaxf(imv, 1e-12f))
+                                       : 0.f;
+            buf1[(size_t)i * CB + c] = sd * z[j];
+          }
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int l = 0; l < ML; ++l) {
+        const int i = tid + l * T;
+        if (l < lpt && i < own) {
+          ld<CB>(buf1 + (size_t)i * CB, m[l]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < CB; ++c) m[l][c] = 0.f;
+        }
+      }
+    }
+    cl.sync();  // the cluster's x0 in place; buf1 read
 
-// Lane i's endpoint after trajectory(): returns p1 = m + 1/2 eps g1 and
-// adds x1(h + g1) to *lp1. n_steps == 0 is the identity map: p1 is p0 and
-// the endpoint term repeats the start's exactly.
-__device__ __forceinline__ float end_lane(
-    const float* xs, const float* ms, int i, int n,
-    const float* __restrict__ diag, const float* __restrict__ wdia,
-    const float* __restrict__ h, int K, const Offsets& offs, float eps,
-    int n_steps, double* lp1) {
-  float g = h[i] - band_matvec(xs, i, n, diag, wdia, K, offs);
-  *lp1 += (double)(xs[i] * (h[i] + g));
-  return n_steps > 0 ? ms[i] + 0.5f * eps * g : ms[i];
+    // start: lp0 (K2: minus the kinetic energy), the first half-kick and
+    // drift x1 -> buf1; each thread sums its lanes' terms per chain
+    double acc[CB];
+#pragma unroll
+    for (int c = 0; c < CB; ++c) acc[c] = 0.0;
+#pragma unroll
+    for (int l = 0; l < ML; ++l) {
+      const int i = tid + l * T;
+      if (l < lpt && i < own) {
+        float x[CB], g[CB];
+        grad(buf0, i, x, g);
+        const float hh = ch[i], imv = cim[i];
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          acc[c] += (double)(x[c] * (hh + g[c]));
+          if (kProposal) acc[c] -= (double)(imv * m[l][c] * m[l][c]);
+          if (a.n_steps > 0) {
+            m[l][c] = m[l][c] + 0.5f * eps * g[c];
+            x[c] = x[c] + eps * imv * m[l][c];
+          }
+        }
+        if (a.n_steps > 0) st<CB>(buf1 + (size_t)i * CB, x);
+      }
+    }
+    warp_sums<CB>(acc, lane, red + warp * CB);
+    if (a.n_steps > 0) cl.sync();
+    for (int s = 1; s < a.n_steps; ++s) {
+      float* cur = (s & 1) ? buf1 : buf0;
+      float* nxt = (s & 1) ? buf0 : buf1;
+#pragma unroll
+      for (int l = 0; l < ML; ++l) {
+        const int i = tid + l * T;
+        if (l < lpt && i < own) {
+          float x[CB], g[CB];
+          grad(cur, i, x, g);
+          const float imv = cim[i];
+#pragma unroll
+          for (int c = 0; c < CB; ++c) {
+            m[l][c] += eps * g[c];
+            x[c] = x[c] + eps * imv * m[l][c];
+          }
+          st<CB>(nxt + (size_t)i * CB, x);
+        }
+      }
+      cl.sync();
+    }
+    // end: lp1 (K2: minus the kinetic energy), the last half-kick; x1 and
+    // (K6) p1 back to latent rows. n_steps == 0 repeats the start exactly.
+    float* cur = (a.n_steps & 1) ? buf1 : buf0;
+#pragma unroll
+    for (int c = 0; c < CB; ++c) acc[c] = 0.0;
+#pragma unroll
+    for (int l = 0; l < ML; ++l) {
+      const int i = tid + l * T;
+      if (l < lpt && i < own) {
+        float x[CB], g[CB];
+        grad(cur, i, x, g);
+        const float hh = ch[i], imv = cim[i];
+        const int v = cinv[i];
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          acc[c] += (double)(x[c] * (hh + g[c]));
+          const float p1 = a.n_steps > 0 ? m[l][c] + 0.5f * eps * g[c]
+                                         : m[l][c];
+          if (kProposal) acc[c] -= (double)(imv * p1 * p1);
+          if (v >= 0 && c0 + c < a.C) {
+            const size_t o = (size_t)(c0 + c) * a.n + v;
+            a.xo[o] = x[c];
+            if (!kProposal) a.po[o] = p1;
+          }
+        }
+      }
+    }
+    warp_sums<CB>(acc, lane, red + (W + warp) * CB);
+    __syncthreads();
+    if (tid < 2 * CB) {
+      const int pass = tid / CB, c = tid - pass * CB;
+      double s = 0.0;
+      for (int w = 0; w < W; ++w) s += red[(pass * W + w) * CB + c];
+      part[pass * CB + c] = s;
+    }
+    cl.sync();  // every block's partials in place; peers done reading x
+    if (rank == 0) {
+      // the peers' partials in one round of remote loads, then summed in
+      // rank order
+      if (tid < S * 2 * CB) {
+        const double* pr = cl.map_shared_rank(part, (unsigned)(tid / (2 * CB)));
+        gath[tid] = pr[tid % (2 * CB)];
+      }
+      __syncthreads();
+    }
+    if (rank == 0 && tid < CB && c0 + tid < a.C) {
+      double s0 = 0.0, s1 = 0.0;
+      for (int r = 0; r < S; ++r) {
+        s0 += gath[r * 2 * CB + tid];
+        s1 += gath[r * 2 * CB + CB + tid];
+      }
+      if (kProposal) {
+        // 1/2 [(lp1 - ke1) - (lp0 - ke0)]; NaN stays NaN
+        const double d = 0.5 * (s1 - s0);
+        a.out0[c0 + tid] = (float)(d > 0.0 ? 0.0 : d);
+      } else {
+        a.out0[c0 + tid] = (float)(0.5 * s0);
+        a.out1[c0 + tid] = (float)(0.5 * s1);
+      }
+    }
+  }
+  cl.sync();  // no block leaves while a peer may still read its memory
 }
 
 // Host-side checks shared by both launchers: argument ranges, the offsets
-// (|o| < n keeps the single-wrap index arithmetic in range) and the
-// dynamic shared memory of one chain's two rows. Returns a CUDA error code.
-inline int check_launch(int C, int n, int K, const int* offsets, int n_steps,
-                        Offsets* offs, size_t* smem) {
-  if (C <= 0 || n <= 0 || n_steps < 0 || K < 0 || K > kMaxOffsets)
+// (|o| < n_emb keeps the single-wrap index arithmetic in range) and the
+// geometry against the shared-memory reckoning. Returns a CUDA error code.
+inline int check_launch(int C, int n, int n_emb, int K, const int* offsets,
+                        int n_steps, bool has_inv, int cluster, int threads,
+                        int chains, int slice, size_t smem, Offsets* offs) {
+  if (C <= 0 || n <= 0 || n_emb < n || n_steps < 0 || K < 0 ||
+      K > kMaxOffsets || (!has_inv && n_emb != n))
     return (int)cudaErrorInvalidValue;
   *offs = Offsets{};
   for (int k = 0; k < K; ++k) {
-    if (offsets[k] <= -n || offsets[k] >= n) return (int)cudaErrorInvalidValue;
+    if (offsets[k] <= -n_emb || offsets[k] >= n_emb)
+      return (int)cudaErrorInvalidValue;
     offs->o[k] = offsets[k];
   }
-  *smem = 2 * (size_t)n * sizeof(float);
-  if (*smem > (size_t)kSmemLimit - 32 * sizeof(double))
-    return (int)cudaErrorInvalidValue;
+  const bool pow2_cluster = cluster == 1 || cluster == 2 || cluster == 4 ||
+                            cluster == kMaxCluster;
+  const bool pow2_chains = chains == 1 || chains == 2 || chains == 4 ||
+                           chains == 8;
+  if (!pow2_cluster || !pow2_chains || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 || slice <= 0 ||
+      slice % 4 != 0 || (long long)cluster * slice < n_emb ||
+      (slice + threads - 1) / threads > kRegLanes / chains)
+    return (int)cudaErrorInvalidConfiguration;
+  if (smem < smem_bytes(K, chains, slice, threads) || smem > kSmemLimit)
+    return (int)cudaErrorInvalidConfiguration;
   return (int)cudaSuccess;
+}
+
+// How many clusters of a kernel fit on the card at once. The kernel's
+// dynamic shared-memory limit is raised to the largest size asked of it
+// so far (a smaller launch runs under a larger limit), and the runtime's
+// answer is remembered per kernel, device, cluster size, block size and
+// shared bytes: both calls cost more than the launch.
+template <typename Kernel>
+inline cudaError_t clusters_that_fit(Kernel kernel, cudaLaunchConfig_t* cfg,
+                                     int* fit) {
+  struct Limit {
+    const void* fn;
+    int device;
+    size_t smem;
+  };
+  struct Entry {
+    const void* fn;
+    int device, cluster, threads;
+    size_t smem;
+    int fit;
+  };
+  static std::mutex mu;
+  static Limit limits[16];
+  static Entry seen[64];
+  static int n_limits = 0, n_seen = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* fn = (const void*)kernel;
+  const int cluster = (int)cfg->attrs[0].val.clusterDim.x;
+  const int threads = (int)cfg->blockDim.x;
+  const size_t smem = cfg->dynamicSmemBytes;
+  std::lock_guard<std::mutex> lock(mu);
+  Limit* lim = nullptr;
+  for (int e = 0; e < n_limits; ++e)
+    if (limits[e].fn == fn && limits[e].device == device) lim = &limits[e];
+  if (lim == nullptr || lim->smem < smem) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if (lim != nullptr) lim->smem = smem;
+    else if (n_limits < 16) limits[n_limits++] = Limit{fn, device, smem};
+  }
+  for (int e = 0; e < n_seen; ++e) {
+    const Entry& s = seen[e];
+    if (s.fn == fn && s.device == device && s.cluster == cluster &&
+        s.threads == threads && s.smem == smem) {
+      *fit = s.fit;
+      return cudaSuccess;
+    }
+  }
+  err = cudaOccupancyMaxActiveClusters(fit, kernel, cfg);
+  if (err != cudaSuccess) return err;
+  if (n_seen < 64)
+    seen[n_seen++] = Entry{fn, device, cluster, threads, smem, *fit};
+  return cudaSuccess;
+}
+
+// Launch `kernel` as persistent clusters of `cluster` blocks: as many as
+// fit on the card at once, at most one per chain group.
+template <typename Kernel>
+inline int launch(Kernel kernel, const Args& a, int cluster, int threads,
+                  int chains, size_t smem, cudaStream_t stream) {
+  cudaError_t err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = clusters_that_fit(kernel, &cfg, &fit);
+  if (err != cudaSuccess) return (int)err;
+  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  const int groups = (a.C + chains - 1) / chains;
+  cfg.gridDim = dim3((unsigned)(cluster * (groups < fit ? groups : fit)), 1, 1);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace lhvi_dia

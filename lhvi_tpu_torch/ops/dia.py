@@ -6,10 +6,13 @@ diagonals: ``J x = diag·x + Σ_k w_k · x[i + o_k]`` for a small static
 offset set ``{o_k}``. The host half (``ell_to_dia``, ``pos_to_inv``) is the
 reference's numpy code. The device half runs the whole HMC proposal —
 momentum draw, trajectory, energies, log-accept — in ONE kernel (K2,
-``csrc/dia_proposal.cu``) that keeps a chain's positions and momenta in
-shared memory for the whole trajectory; the public leapfrog from given
-momenta, ``dia_quad_leapfrog``, runs the same trajectory body in K6
-(``csrc/dia_leapfrog.cu``).
+``csrc/dia_proposal.cu``) on latent rows: clusters of blocks split the
+embedded row, keep a group of chains' positions in shared memory and
+their momenta in registers for the whole trajectory, and read the latent
+rows and lane constants through the inverse embedding. The public
+leapfrog from given momenta, ``dia_quad_leapfrog``, runs the same
+trajectory body in K6 (``csrc/dia_leapfrog.cu``). :func:`dia_launch`
+chooses the geometry both run at.
 
 Correctness of wrapped indices: an entry ``w_k[i] ≠ 0`` implies the edge
 (i, i+o_k) exists, hence ``0 ≤ i+o_k < n`` — every wrapped-around neighbour
@@ -20,7 +23,9 @@ plain version's ``torch.roll`` and the kernel's modular index are exact.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,10 +33,17 @@ import torch
 from lhvi_tpu_torch.ops import _build
 from lhvi_tpu_torch.ops.leapfrog import _check_f32, eps_tensor
 
-# Widest embedded row K2 and K6 take: one chain's positions and momenta in
-# shared memory, 2·4·n_emb bytes within the H100's 227 KB per block. Wider
-# banded models take the ELL path (as the reference does past its own cap).
+# Widest embedded row K2 and K6 take: at 28,672 lanes a cluster of 8
+# blocks holds 3,584 lanes each, with their lane constants and at least two
+# chains' double-buffered positions within the H100's 227 KB per block
+# (``dia_launch``). Wider banded models take the ELL path (as the reference
+# does past its own cap).
 DIA_MAX_EMB = 28 * 1024
+# K2's and K6's shared memory per block (csrc/dia_traj.cuh kSmemLimit) and
+# the momenta a thread holds in registers, lanes x chains (kRegLanes)
+DIA_SMEM_LIMIT = 227 * 1024
+_REG_LANES = 32
+_MAX_THREADS = 512
 
 
 def ell_to_dia(col: np.ndarray, w: np.ndarray, pos: np.ndarray = None,
@@ -183,22 +195,93 @@ def _plain_dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
                        inv_mass, eps, n_steps, pos)
 
 
-def _cuda_dia_leapfrog(x, p, diag, offsets, wdia, h, im, eps, n_steps: int):
-    """Launch K6 on EMBEDDED rows: x, p [C, n_emb] →
-    ``(x1, p1 [C, n_emb], lp0, lp1 [C])``."""
+class DiaLaunch(NamedTuple):
+    """K2's and K6's launch geometry (``csrc/dia_traj.cuh``): a cluster of
+    ``cluster`` blocks of ``threads`` threads splits the embedded row into
+    slices of ``slice`` lanes and integrates ``chains`` chains at once in
+    ``smem`` bytes of shared memory per block."""
+
+    cluster: int
+    threads: int
+    chains: int
+    slice: int
+    smem: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _dia_smem(K: int, chains: int, slice_: int, threads: int) -> int:
+    """``csrc/dia_traj.cuh::smem_bytes``: per-warp, per-block and
+    per-cluster (8 blocks at most) double partials, the slice's lane
+    constants (diag, h, im, latent index and K weights) and two position
+    buffers of ``chains`` floats a lane."""
+    return (8 * chains * (2 * (threads // 32) + 2 + 2 * 8)
+            + 4 * slice_ * (4 + K + 2 * chains))
+
+
+@functools.lru_cache(maxsize=None)
+def dia_launch(n_emb: int, K: int) -> DiaLaunch:
+    """The geometry K2 and K6 run at ``n_emb`` embedded lanes and ``K``
+    offsets: the most chains per block (8, 4, 2, 1), then the smallest
+    cluster (1, 2, 4, 8 blocks), whose slice a block's threads cover with
+    at most ``_REG_LANES`` lane-chain momenta each and whose shared memory
+    fits ``DIA_SMEM_LIMIT``, with at most 512 threads a block. At the
+    128×128 grid (16,384 lanes, K = 4): 8 chains, clusters of 8 blocks of
+    512 threads, 2,048 lanes a block."""
+    if n_emb > DIA_MAX_EMB:
+        raise ValueError(f"n_emb {n_emb} exceeds DIA_MAX_EMB {DIA_MAX_EMB}")
+    for chains in (8, 4, 2, 1):
+        per = _REG_LANES // chains
+        for cluster in (1, 2, 4, 8):
+            slice_ = _round_up(-(-n_emb // cluster), 4)
+            if slice_ > _MAX_THREADS * per:
+                continue
+            threads = min(_MAX_THREADS, _round_up(-(-slice_ // per), 32))
+            smem = _dia_smem(K, chains, slice_, threads)
+            if smem <= DIA_SMEM_LIMIT:
+                return DiaLaunch(cluster, threads, chains, slice_, smem)
+    raise ValueError(f"no K2/K6 geometry fits {n_emb} lanes, {K} offsets")
+
+
+def _check_banded(name, x, offsets, wdia, inv):
+    """(C, n, n_emb, K) of a kernel call on latent rows, or raise."""
     C, n = x.shape
     K = len(offsets)
+    n_emb = n if inv is None else inv.shape[0]
+    if n_emb > DIA_MAX_EMB:
+        raise ValueError(f"n_emb {n_emb} exceeds DIA_MAX_EMB {DIA_MAX_EMB}")
+    if K > 8:
+        raise ValueError(f"{K} offsets; {name} takes at most 8")
+    if inv is not None and (inv.dtype != torch.int64 or inv.device != x.device
+                            or not inv.is_contiguous()):
+        raise TypeError(f"{name}: inv must be a contiguous int64 tensor on "
+                        f"{x.device}")
+    return C, n, n_emb, K
+
+
+def _inv_of(pos, n: int, n_emb: int):
+    """The inverse embedding of ``pos`` on its device (``pos_to_inv``)."""
+    inv = torch.full((n_emb,), n, dtype=torch.int64, device=pos.device)
+    inv[pos] = torch.arange(n, dtype=torch.int64, device=pos.device)
+    return inv
+
+
+def _cuda_dia_leapfrog(x, p, diag, offsets, wdia, h, im, eps, n_steps: int,
+                       inv=None):
+    """Launch K6 on LATENT rows: x, p [C, n] → ``(x1, p1 [C, n], lp0, lp1
+    [C])``; ``inv`` (int64 [n_emb]) is the inverse embedding, None for the
+    identity."""
+    C, n, n_emb, K = _check_banded("K6", x, offsets, wdia, inv)
     dev = x.device
     eps = eps_tensor(eps, dev)
-    if n > DIA_MAX_EMB:
-        raise ValueError(f"n_emb {n} exceeds DIA_MAX_EMB {DIA_MAX_EMB}")
-    if K > 8:
-        raise ValueError(f"{K} offsets; K6 takes at most 8")
     for name, t, shape in (("x", x, (C, n)), ("p", p, (C, n)),
-                           ("diag", diag, (n,)), ("wdia", wdia, (K, n)),
+                           ("diag", diag, (n,)), ("wdia", wdia, (K, n_emb)),
                            ("h", h, (n,)), ("inv_mass", im, (n,)),
                            ("eps", eps, ())):
         _check_f32(name, t, dev, shape)
+    geo = dia_launch(n_emb, K)
     xo, po = torch.empty_like(x), torch.empty_like(p)
     lp0 = torch.empty((C,), dtype=torch.float32, device=dev)
     lp1 = torch.empty((C,), dtype=torch.float32, device=dev)
@@ -206,9 +289,10 @@ def _cuda_dia_leapfrog(x, p, diag, offsets, wdia, h, im, eps, n_steps: int):
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = _build.lib().lhvi_dia_leapfrog(
         x.data_ptr(), p.data_ptr(), diag.data_ptr(), wdia.data_ptr(),
-        h.data_ptr(), im.data_ptr(), eps.data_ptr(), xo.data_ptr(),
-        po.data_ptr(), lp0.data_ptr(), lp1.data_ptr(), C, n, K,
-        ctypes.cast(offs, ctypes.c_void_p), int(n_steps), stream)
+        h.data_ptr(), im.data_ptr(), None if inv is None else inv.data_ptr(),
+        eps.data_ptr(), xo.data_ptr(), po.data_ptr(), lp0.data_ptr(),
+        lp1.data_ptr(), C, n, n_emb, K, ctypes.cast(offs, ctypes.c_void_p),
+        int(n_steps), *geo, stream)
     _build.check(code, "dia_leapfrog")
     dia_quad_leapfrog.launches += 1
     return xo, po, lp0, lp1
@@ -229,13 +313,14 @@ def dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
     p unchanged and lp0 twice on both routes.
     """
     if x.is_cuda:
-        run = _cuda_dia_leapfrog
-    elif x.device.type == "cpu":
-        run = _torch_dia_leapfrog
-    else:
+        inv = None if pos is None else _inv_of(pos, x.shape[-1],
+                                               wdia.shape[1])
+        return _cuda_dia_leapfrog(x, p, diag, offsets, wdia, h, inv_mass,
+                                  eps, n_steps, inv=inv)
+    if x.device.type != "cpu":
         raise NotImplementedError(f"dia_quad_leapfrog: no route for {x.device}")
-    return _around_pos(run, x, p, diag, offsets, wdia, h, inv_mass, eps,
-                       n_steps, pos)
+    return _around_pos(_torch_dia_leapfrog, x, p, diag, offsets, wdia, h,
+                       inv_mass, eps, n_steps, pos)
 
 
 dia_quad_leapfrog.launches = 0
@@ -258,38 +343,35 @@ def _momentum_std(im):
                        torch.zeros((), dtype=im.dtype, device=im.device))
 
 
-def _cuda_dia_proposal(x, diag, offsets, wdia, h, im, std, eps,
-                       n_steps: int, seed: int, offset: int, p0=None):
-    """Launch K2 on EMBEDDED rows: x [C, n_emb] → (x1 [C, n_emb],
-    log_acc [C]). ``p0`` (test mode) replaces the in-kernel momentum draw;
-    otherwise momenta come from Philox keyed by ``seed`` with counter
-    (lane quad, chain, ``offset``)."""
-    C, n = x.shape
-    K = len(offsets)
+def _cuda_dia_proposal(x, diag, offsets, wdia, h, im, eps, n_steps: int,
+                       seed: int, offset: int, inv=None, p0=None):
+    """Launch K2 on LATENT rows: x [C, n] → (x1 [C, n], log_acc [C]), with
+    ``inv`` (int64 [n_emb]) the inverse embedding, None for the identity;
+    diag, h and im are latent too (the kernel embeds them, and forms the
+    momentum scale from im). ``p0`` (test mode, [C, n]) replaces the
+    in-kernel momentum draw; otherwise momenta come from Philox keyed by
+    ``seed`` with counter (lane quad, chain, ``offset``)."""
+    C, n, n_emb, K = _check_banded("K2", x, offsets, wdia, inv)
     dev = x.device
     eps = eps_tensor(eps, dev)
-    if n > DIA_MAX_EMB:
-        raise ValueError(f"n_emb {n} exceeds DIA_MAX_EMB {DIA_MAX_EMB}")
-    if K > 8:
-        raise ValueError(f"{K} offsets; K2 takes at most 8")
     for name, t, shape in (("x", x, (C, n)), ("diag", diag, (n,)),
-                           ("wdia", wdia, (K, n)), ("h", h, (n,)),
-                           ("inv_mass", im, (n,)), ("std", std, (n,)),
-                           ("eps", eps, ())):
+                           ("wdia", wdia, (K, n_emb)), ("h", h, (n,)),
+                           ("inv_mass", im, (n,)), ("eps", eps, ())):
         _check_f32(name, t, dev, shape)
     if p0 is not None:
         _check_f32("p0", p0, dev, (C, n))
+    geo = dia_launch(n_emb, K)
     xo = torch.empty_like(x)
     log_acc = torch.empty((C,), dtype=torch.float32, device=dev)
     offs = (ctypes.c_int * max(K, 1))(*offsets)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = _build.lib().lhvi_dia_proposal(
         x.data_ptr(), diag.data_ptr(), wdia.data_ptr(), h.data_ptr(),
-        im.data_ptr(), std.data_ptr(),
+        im.data_ptr(), None if inv is None else inv.data_ptr(),
         None if p0 is None else p0.data_ptr(), eps.data_ptr(),
-        xo.data_ptr(), log_acc.data_ptr(), C, n, K,
+        xo.data_ptr(), log_acc.data_ptr(), C, n, n_emb, K,
         ctypes.cast(offs, ctypes.c_void_p), int(n_steps),
-        seed & (2**64 - 1), offset & (2**64 - 1), stream)
+        seed & (2**64 - 1), offset & (2**64 - 1), *geo, stream)
     _build.check(code, "dia_proposal")
     dia_hmc_proposal.launches += 1
     return xo, log_acc
@@ -301,51 +383,54 @@ def dia_hmc_proposal(gen, xc, diag, offsets, wdia, h, inv_mass, eps,
     integrate the whole trajectory, return ``(x1 [C, n], log_acc [C])``.
 
     Everything between the momentum draw and the accept test runs in
-    EMBEDDED coordinates, entered and left by one gather each way through
-    ``inv``; gap lanes get std 0 via their zero inv_mass.
+    EMBEDDED coordinates (``pos`` and its inverse ``inv``); gap lanes get
+    std 0 via their zero inv_mass.
 
     CUDA tensors go through kernel K2 (``dia_hmc_proposal.launches`` counts
-    its launches): momenta are drawn in-kernel from Philox keyed by
-    ``gen.initial_seed()`` and ``gen``'s Philox offset, which the call
+    its launches) on the latent rows and latent diag, h and inv_mass: the
+    kernel reads them through ``inv`` (once per launch for the constants),
+    so no embedded copy is built on the host and a mass refresh in place
+    is read by the next call. Momenta are drawn in-kernel from Philox keyed
+    by ``gen.initial_seed()`` and ``gen``'s Philox offset, which the call
     advances as a draw of its own would, so consecutive proposals and
     consecutive runs on one generator get fresh momenta. Both are host
-    values: no device value is read back. CPU tensors take the plain version:
-    ``torch.randn`` momenta from ``gen``, then ``_torch_dia_leapfrog``.
-    ``p0`` (latent coordinates, [C, n]) replaces the momentum draw on
-    either route, so one trajectory can be compared exactly.
+    values: no device value is read back. CPU tensors take the plain
+    version: one gather each way through ``inv``, ``torch.randn`` momenta
+    from ``gen``, then ``_torch_dia_leapfrog``. ``p0`` (latent
+    coordinates, [C, n]) replaces the momentum draw on either route, so
+    one trajectory can be compared exactly.
     """
-    if pos is not None:
-        x = _embed_gather(xc, inv)
-        diag = _embed_gather(diag, inv)
-        h = _embed_gather(h, inv)
-        im = _embed_gather(inv_mass, inv)
-        p0 = None if p0 is None else _embed_gather(p0, inv)
-    else:
-        x, im = xc, inv_mass
-    std = _momentum_std(im)
-    if x.is_cuda:
+    if xc.is_cuda:
         seed = offset = 0
         if p0 is None:
             seed, offset = gen.initial_seed() ^ _KEY_TAG, gen.get_offset()
             gen.set_offset(offset + 4)  # CUDA offsets step in fours
         x1, log_acc = _cuda_dia_proposal(
-            x.contiguous(), diag.contiguous(), offsets, wdia, h.contiguous(),
-            im.contiguous(), std, eps, n_steps, seed, offset,
-            None if p0 is None else p0.contiguous())
-    elif x.device.type == "cpu":
+            xc.contiguous(), diag.contiguous(), offsets, wdia, h.contiguous(),
+            inv_mass.contiguous(), eps, n_steps, seed, offset,
+            inv=None if pos is None else inv,
+            p0=None if p0 is None else p0.contiguous())
+    elif xc.device.type == "cpu":
+        if pos is not None:
+            x, diag, h, im = (_embed_gather(a, inv)
+                              for a in (xc, diag, h, inv_mass))
+            p0 = None if p0 is None else _embed_gather(p0, inv)
+        else:
+            x, im = xc, inv_mass
         if p0 is None:
-            p0 = std[None, :] * torch.randn(x.shape, generator=gen,
-                                            dtype=x.dtype)
+            p0 = _momentum_std(im)[None, :] * torch.randn(
+                x.shape, generator=gen, dtype=x.dtype)
         x1, p1, lp0, lp1 = _torch_dia_leapfrog(
             x, p0, diag, offsets, wdia, h, im, eps, n_steps)
         log_acc = torch.clamp((lp1 - lp0) + (_kinetic(im, p0)
                                              - _kinetic(im, p1)), max=0.0)
+        if pos is not None:
+            x1 = x1[..., pos]
     else:
-        raise NotImplementedError(f"dia_hmc_proposal: no route for {x.device}")
+        raise NotImplementedError(f"dia_hmc_proposal: no route for "
+                                  f"{xc.device}")
     log_acc = torch.where(torch.isfinite(log_acc), log_acc,
                           torch.full((), -math.inf, device=log_acc.device))
-    if pos is not None:
-        x1 = x1[..., pos]
     return x1, log_acc
 
 

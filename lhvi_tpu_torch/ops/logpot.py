@@ -14,9 +14,9 @@ routes compute the same thing:
   (``_torch_logpot_leapfrog``, the reference's ``_jnp_logpot_leapfrog``);
 - a :class:`LogpotPlan` on CUDA tensors: ONE launch of K5 per proposal,
   which keeps a tile of chains' positions, momenta and gradients in
-  shared memory for the whole trajectory and interprets each bucket's
-  traced tape (``ops/logpot_tape.py``) forward and backward per
-  (chain, factor);
+  shared memory for the whole trajectory; a warp interprets one factor
+  row's traced tape (``ops/logpot_tape.py``) forward and backward for 32
+  chains at once (:func:`k5_launch` sets the tile);
 - a plan on CPU tensors: the same trajectory with the energy and gradient
   from :func:`tape_energy_grad`, K5's plain twin.
 
@@ -24,7 +24,7 @@ Two plans. :func:`logpot_plan` keeps the reference's eligibility rules
 (its TPU VMEM estimate included), so the same models are eligible there,
 and returns None where the reference's does. :func:`kernel_plan` is the
 plan K5 runs: it is held to K5's own limits (a dense quadratic form, a
-planar kernel per bucket, one chain's state within a block's shared
+planar kernel per bucket, one chain and one warp within a block's shared
 memory) and RAISES where K5 cannot run the graph. ``plan="auto"``
 resolves to the cached kernel plan on CUDA tensors, so a model never
 leaves K5 silently on the card, and to None (autograd) on CPU tensors,
@@ -33,15 +33,17 @@ record makes either plan raise.
 
 The plan's tables are gathers, not the reference's one-hot ``x @ G``
 matmuls (a Mosaic workaround): per factor row and continuous slot, the
-latent's index (−1 for evidence) and the evidence value; the gradient is
-assembled per variable from a CSR list of (row, slot) adjoints, so every
-run gives the same bits. Padded factor rows (scale 0) are dropped.
+latent's index (−1 for evidence) and the evidence value. The active rows
+are coloured so that no two rows of a colour read the same latent, and
+the gradient takes their slot adjoints colour by colour, slot by slot: a
+fixed order without atomics, so every run gives the same bits. Padded
+factor rows (scale 0) are dropped.
 """
 
 from __future__ import annotations
 
 import weakref
-from typing import Any, List, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -114,10 +116,12 @@ class LogpotPlan:
     only evidence (their energy is constant along a trajectory, so K5
     evaluates them once per proposal). Per row: ``cidx``/``cconst``
     ``[R, ACM]`` (latent index or −1, evidence value), ``prm [R, PM]``
-    (parameters in the planar layout), ``w [R]`` (scale) and
-    ``row_bucket``. Per variable: ``csr_ptr``/``csr_ent``, the entries
-    ``row·ACM + slot`` whose adjoints sum into its gradient. Discrete
-    slot values are gathered per proposal by :meth:`disc_values`.
+    (parameters in the planar layout) and ``w [R]`` (scale). K5's order:
+    ``row_order``, cut into ``segs`` (bucket, first position, count) and
+    the segments into colours by ``color_ptr`` (``segments`` holds the
+    same for the twin). The tapes: ``tape_pack`` (16-byte nodes) and
+    ``bucket_tape`` (first node, length). Discrete slot values are
+    gathered per proposal by :meth:`disc_values`.
     """
 
     def __init__(self, fg, buckets: List[_BucketPlan], tables: dict):
@@ -175,11 +179,81 @@ def _footprint(fg, idx, block_chains: int) -> Optional[int]:
     return total + 4 * block_chains * n_pad * 4
 
 
-def _k5_smem_one_chain(n: int, n_active: int, acm: int) -> int:
-    """Bytes of shared memory K5 needs for a tile of one chain: x, p, g
-    and the quadratic terms, the active rows' w·lp and slot adjoints, the
-    evidence rows' energy (a double) and the launch's 16 bytes of slack."""
-    return 16 + 8 + 4 * (4 * n + n_active * (1 + acm))
+class K5Launch(NamedTuple):
+    """K5's launch geometry (``csrc/logpot_leapfrog.cu``): blocks of
+    ``threads`` threads own ``chains`` chains each (a power of two up to
+    32); ``stage``/``j_smem``: the plan's tables and J are copied into the
+    block's ``smem`` bytes of shared memory."""
+
+    threads: int
+    chains: int
+    stage: bool
+    j_smem: bool
+    smem: int
+
+
+def _k5_smem(plan, threads: int, chains: int, stage: bool,
+             j_smem: bool) -> int:
+    """K5's shared memory per block (``smem_bytes`` in the kernel): two
+    double partials a thread; the staged tables (16-byte tape nodes, then
+    the int and float row tables) and J; x, p and g of the block's chains;
+    each warp's node values and adjoints ([max_tape][32] each) and its slot
+    adjoints ([acm][32])."""
+    n, R, acm = plan.n_cont, plan.n_rows, plan.acm
+    b = 16 * threads
+    if stage:
+        b += 16 * plan.tape_pack.shape[0] + 4 * (
+            2 * len(plan.buckets) + R + 3 * len(plan.seg_list)
+            + plan.n_colors + 2 + 2 * R * acm + R * plan.pm + R)
+    if j_smem:
+        b += 4 * n * n
+    b += 12 * n * chains
+    b += (threads // 32) * 128 * (2 * plan.max_tape + acm)
+    return b
+
+
+def k5_launch(plan, C: int) -> K5Launch:
+    """The geometry K5 runs a plan at for C chains. Chains per block: the
+    smallest power of two covering C, at most 32 (a warp's lanes are then
+    32 chains of one row, or 32 / TC rows × TC chains). Warps: enough for
+    the largest colour's tasks and for the (variable, chain) passes, at
+    most 32, fewer where shared memory runs out; then the tables and J go
+    to shared memory where they still fit. At robot_map(100), C = 16,384:
+    32 chains, 14 warps; at the 11×11 denoise grid, C = 4,096: 32 chains,
+    32 warps. Raises ``NotImplementedError`` where one chain and one warp
+    do not fit (``kernel_plan`` raises first)."""
+    key = int(C)
+    hit = plan.launch_cache.get(key)
+    if hit is not None:
+        return hit
+    n = plan.n_cont
+    chains = min(32, 1 << max(0, (key - 1).bit_length()))
+    while True:
+        rpl = 32 // chains
+        tasks = max([sum(-(-k // rpl) for _, _, k in
+                         plan.seg_list[plan.color_list[i]:
+                                       plan.color_list[i + 1]])
+                     for i in range(plan.n_colors)] + [1])
+        warps = min(32, max(tasks, -(-(n * chains) // 32)))
+        while warps > 1 and _k5_smem(plan, 32 * warps, chains, False,
+                                     False) > K5_SMEM_LIMIT:
+            warps -= 1
+        smem = _k5_smem(plan, 32 * warps, chains, False, False)
+        if smem <= K5_SMEM_LIMIT:
+            break
+        if chains == 1:
+            raise NotImplementedError(
+                f"K5 needs {smem} bytes of shared memory for one chain and "
+                f"one warp; a block has {K5_SMEM_LIMIT}")
+        chains //= 2
+    threads = 32 * warps
+    stage = _k5_smem(plan, threads, chains, True, False) <= K5_SMEM_LIMIT
+    j_smem = plan.has_quad and _k5_smem(plan, threads, chains, stage,
+                                        True) <= K5_SMEM_LIMIT
+    geo = K5Launch(threads, chains, stage, j_smem,
+                   _k5_smem(plan, threads, chains, stage, j_smem))
+    plan.launch_cache[key] = geo
+    return geo
 
 
 def logpot_plan(fg, max_bytes: int = 8 << 20,
@@ -206,7 +280,7 @@ def kernel_plan(fg) -> Optional[LogpotPlan]:
     where K5 cannot run the graph: an ELL-sparse quadratic form (K5 reads
     a dense J), no factor reading a continuous latent, a bucket without a
     planar kernel or with a formula the tracer cannot record, or one
-    chain's state past a block's shared memory."""
+    chain and one warp past a block's shared memory (``k5_launch``)."""
     if fg.n_cont == 0:
         return None
     if fg.quad_sparse:
@@ -225,19 +299,19 @@ def kernel_plan(fg) -> Optional[LogpotPlan]:
                 f"K5: bucket {i} (pattern {b.pattern}, {b.n_factors} "
                 f"factors) has no planar kernel to trace")
     plan = _build_plan(fg, idx)
-    need = _k5_smem_one_chain(plan.n_cont, plan.n_active, plan.acm)
+    need = _k5_smem(plan, 32, 1, False, False)
     if need > K5_SMEM_LIMIT:
         raise NotImplementedError(
-            f"K5 needs {need} bytes of shared memory for one chain "
-            f"({plan.n_cont} latents, {plan.n_active} factor rows on them); "
-            f"a block has {K5_SMEM_LIMIT}")
+            f"K5 needs {need} bytes of shared memory for one chain and one "
+            f"warp ({plan.n_cont} latents, tapes of up to {plan.max_tape} "
+            f"nodes, {plan.acm} continuous slots): 512 + 12 n + 128 (2 "
+            f"max_tape + acm) must stay within a block's {K5_SMEM_LIMIT}")
     return plan
 
 
 def _build_plan(fg, idx) -> LogpotPlan:
     """Trace the buckets ``idx`` and lay out the plan's tables."""
     dev = fg.device
-    n = fg.n_cont
     traced = []  # (bucket index, tape, real rows, param table, np bucket)
     for i in idx:
         b = fg.buckets[i]
@@ -290,22 +364,16 @@ def _build_plan(fg, idx) -> LogpotPlan:
             dconst[k, :ad] = np_b["disc_const"][r]
             kb = np_b["disc_vals"].shape[-1]
             dtab[k, :ad, :kb] = np_b["disc_vals"][r]
-    # per-variable adjoint lists (row-major entry order: deterministic)
-    ent_var = cidx.reshape(-1)
-    ents = np.flatnonzero(ent_var >= 0)
-    ents = ents[np.argsort(ent_var[ents], kind="stable")]
-    csr_ptr = np.concatenate(
-        [[0], np.cumsum(np.bincount(ent_var[ents], minlength=n))]
-    ).astype(np.int32)
-    tape_rows, codes, ta, tb, tc = [], [], [], [], []
+    row_order, segs, color_ptr = _colour_rows(cidx, row_bucket, len(act))
+    # every bucket's tape, one 16-byte node each: op, a, b, c's f32 bits
+    tape_rows, nodes = [], []
     off = 0
     for _, tape, _, _, _ in traced:
         code, a, b_, c = tape.arrays()
         tape_rows.append((off, len(tape)))
-        codes.append(code)
-        ta.append(a)
-        tb.append(b_)
-        tc.append(c)
+        nodes.append(np.stack([code.astype(np.int32), a.astype(np.int32),
+                               b_.astype(np.int32),
+                               c.astype(np.float32).view(np.int32)], 1))
         off += len(tape)
 
     def t(a, dtype=None):
@@ -314,12 +382,14 @@ def _build_plan(fg, idx) -> LogpotPlan:
 
     tables = dict(
         n_active=len(act), acm=acm, adm=adm, pm=pm,
-        row_bucket=t(row_bucket), bucket_tape=t(np.asarray(tape_rows,
-                                                           np.int32)),
-        tape_op=t(np.concatenate(codes)), tape_a=t(np.concatenate(ta)),
-        tape_b=t(np.concatenate(tb)), tape_c=t(np.concatenate(tc)),
+        bucket_tape=t(np.asarray(tape_rows, np.int32)),
+        tape_pack=t(np.concatenate(nodes)),
+        max_tape=max(len(tr[1]) for tr in traced),
         cidx=t(cidx), cconst=t(cconst), prm=t(prm_all), w=t(w),
-        csr_ptr=t(csr_ptr), csr_ent=t(ents.astype(np.int32)),
+        row_order=t(row_order), segs=t(segs), color_ptr=t(color_ptr),
+        n_colors=len(color_ptr) - 2, seg_list=[tuple(map(int, g))
+                                               for g in segs],
+        color_list=[int(c) for c in color_ptr], launch_cache={},
         dvar=t(dvar.reshape(-1)), dlat=t(dlat.reshape(-1)),
         dconst=t(dconst.reshape(-1)), dtab=t(dtab.reshape(-1, vb)),
     )
@@ -334,15 +404,60 @@ def _build_plan(fg, idx) -> LogpotPlan:
                     t(np.asarray(bucket_rows[bi], np.int64)))
         for bi, (i, tape, _, _, _) in enumerate(traced)
     ]
+    # (bucket, its rows in K5's order, active) per segment, for the twin
+    tables["segments"] = [
+        (int(b), t(row_order[a:a + k].astype(np.int64)), bool(a < len(act)))
+        for b, a, k in segs]
     return LogpotPlan(fg, plans, tables)
+
+
+def _colour_rows(cidx, row_bucket, n_active: int):
+    """K5's row order and segments. Active rows are coloured greedily in
+    plan order, so that no two rows of a colour read the same latent, then
+    ordered by (colour, bucket); the evidence-only rows follow, bucket by
+    bucket. Returns ``row_order`` i32 [R], ``segs`` i32 [S, 3] (bucket,
+    first position in row_order, row count) and ``color_ptr`` i32
+    [n_colours + 2]: the segments of colour k are ``color_ptr[k] ..
+    color_ptr[k + 1]``, the last range the evidence-only rows."""
+    R = cidx.shape[0]
+    used: dict = {}
+    colour = np.zeros(R, np.int64)
+    for k in range(n_active):
+        vs = [int(v) for v in cidx[k] if v >= 0]
+        busy = set().union(*(used.get(v, set()) for v in vs))
+        c = 0
+        while c in busy:
+            c += 1
+        colour[k] = c
+        for v in vs:
+            used.setdefault(v, set()).add(c)
+    n_col = int(colour[:n_active].max()) + 1 if n_active else 0
+    colour[n_active:] = n_col
+    row_order = np.lexsort((np.arange(R), row_bucket, colour)).astype(np.int32)
+    segs, color_ptr = [], [0]
+    for col in range(n_col + 1):
+        rows = row_order[colour[row_order] == col]
+        if rows.size:
+            first = int(np.flatnonzero(row_order == rows[0])[0])
+            cut = np.flatnonzero(np.diff(row_bucket[rows])) + 1
+            for a, b in zip(np.r_[0, cut], np.r_[cut, rows.size]):
+                segs.append((int(row_bucket[rows[a]]), first + int(a),
+                             int(b - a)))
+        color_ptr.append(len(segs))
+    return (row_order, np.asarray(segs, np.int32).reshape(-1, 3),
+            np.asarray(color_ptr, np.int32))
 
 
 def tape_energy_grad(plan: LogpotPlan, x: torch.Tensor, dv):
     """K5's plain twin: ``(E [C], ∇E [C, n])`` of the untempered model part
     (``x·h − ½xJx + Σ w·log φ``, without ``quad_c``) at ``x [C, n]``, with
-    the discrete slots at ``dv = plan.disc_values(xd)``. Each bucket's
-    tape runs forward over ``[C, R_b]`` tensors and back for the slot
-    adjoints; energies are summed in double, as the kernel does."""
+    the discrete slots at ``dv = plan.disc_values(xd)``. Segment by segment
+    in K5's order (``plan.segments``: colour by colour, then the
+    evidence-only rows), the bucket's tape runs forward over ``[C, R_s]``
+    tensors and back for the slot adjoints, which are added slot by slot:
+    each variable receives its adjoints in the kernel's order (the
+    quadratic term, then colour by colour; no two rows of a colour share a
+    latent). Energies are summed in double, as the kernel does."""
     C = x.shape[0]
     e = torch.zeros((C,), dtype=torch.float64, device=x.device)
     g = torch.zeros_like(x)
@@ -350,9 +465,9 @@ def tape_energy_grad(plan: LogpotPlan, x: torch.Tensor, dv):
         xJ = x @ plan.J
         e = e + torch.sum(x * (plan.h[None] - 0.5 * xJ), -1).double()
         g = g + (plan.h[None] - xJ)
-    for bp in plan.buckets:
-        rows = bp.rows
-        ci = plan.cidx[rows]  # [R_b, ACM]
+    for b, rows, active in plan.segments:
+        bp = plan.buckets[b]
+        ci = plan.cidx[rows]  # [R_s, ACM]
         cont = [torch.where(ci[:, s] >= 0, x[:, ci[:, s].clamp(min=0)],
                             plan.cconst[rows, s])
                 for s in range(sum(bp.pattern))]
@@ -362,10 +477,12 @@ def tape_energy_grad(plan: LogpotPlan, x: torch.Tensor, dv):
         vals = tape_forward(bp.tape, cont, disc, plan.prm[rows])
         w = plan.w[rows]
         e = e + torch.sum(vals[-1] * w[None], -1).double()
+        if not active:
+            continue
         adj = tape_reverse(bp.tape, vals, w[None].expand(C, -1))
-        for s, a in adj.items():
+        for s in sorted(adj):
             lat = ci[:, s] >= 0
-            g.index_add_(1, ci[lat, s].long(), a[:, lat])
+            g.index_add_(1, ci[lat, s].long(), adj[s][:, lat])
     return e, g
 
 
@@ -410,6 +527,7 @@ def _cuda_logpot_leapfrog(plan, x, p, dv, inv_mass, eps, beta, base_mid,
         checks.append(("disc values", dv, (C, plan.n_rows, plan.adm)))
     for name, t_, shape in checks:
         _check_f32(name, t_, dev, shape)
+    geo = k5_launch(plan, C)
     xo, po = torch.empty_like(x), torch.empty_like(p)
     e0 = torch.empty((C,), device=dev)
     e1 = torch.empty((C,), device=dev)
@@ -419,15 +537,15 @@ def _cuda_logpot_leapfrog(plan, x, p, dv, inv_mass, eps, beta, base_mid,
         beta.data_ptr(), _ptr(plan.J), _ptr(plan.h),
         _ptr(base_mid if use_base else None),
         _ptr(base_is2 if use_base else None),
-        plan.row_bucket.data_ptr(), plan.bucket_tape.data_ptr(),
-        plan.tape_op.data_ptr(), plan.tape_a.data_ptr(),
-        plan.tape_b.data_ptr(), plan.tape_c.data_ptr(),
-        plan.cidx.data_ptr(), plan.cconst.data_ptr(), plan.prm.data_ptr(),
-        plan.w.data_ptr(), _ptr(dv), plan.csr_ptr.data_ptr(),
-        plan.csr_ent.data_ptr(), xo.data_ptr(), po.data_ptr(),
-        e0.data_ptr(), e1.data_ptr(),
-        C, n, plan.n_active, plan.n_rows, plan.acm, plan.adm, plan.pm,
-        int(n_steps), stream)
+        plan.tape_pack.data_ptr(), plan.bucket_tape.data_ptr(),
+        plan.row_order.data_ptr(), plan.segs.data_ptr(),
+        plan.color_ptr.data_ptr(), plan.cidx.data_ptr(),
+        plan.cconst.data_ptr(), plan.prm.data_ptr(), plan.w.data_ptr(),
+        _ptr(dv), xo.data_ptr(), po.data_ptr(), e0.data_ptr(), e1.data_ptr(),
+        C, n, plan.n_rows, plan.tape_pack.shape[0], len(plan.buckets),
+        len(plan.seg_list), plan.n_colors, plan.acm, plan.adm, plan.pm,
+        plan.max_tape, int(n_steps), geo.threads, geo.chains,
+        int(geo.stage), int(geo.j_smem), geo.smem, stream)
     _build.check(code, "logpot_leapfrog")
     logpot_leapfrog.launches += 1
     return xo, po, e0, e1

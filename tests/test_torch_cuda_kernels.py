@@ -78,20 +78,50 @@ def grid32(dev):
     return fg
 
 
-@pytest.mark.parametrize("n_steps", [0, 1, 5])
-def test_dia_proposal_kernel_given_p0_matches_plain(dev, grid32, n_steps):
+def _banded(dev, n, rows=128):
+    """A banded target on n lanes with no embedding (the 4-neighbour
+    stencil of a grid ``rows`` wide, diagonally dominant): diag, offsets,
+    wdia, h. Every weight whose neighbour falls off the row is 0, as
+    ``ell_to_dia`` guarantees."""
+    offs = (-rows, -1, 1, rows)
+    i = torch.arange(n, device=dev)
+    wdia = torch.stack([torch.where((i + o >= 0) & (i + o < n), -1.0, 0.0)
+                        for o in offs]).float().contiguous()
+    g = torch.Generator(dev).manual_seed(n)
+    h = torch.randn((n,), generator=g, device=dev)
+    return torch.full((n,), 4.5, device=dev), offs, wdia, h
+
+
+def _dia_case(dev, grid32, dia_grids, case):
+    """(diag, offsets, wdia, h, pos, inv, C) of a K2/K6 edge case: many
+    chains per block (16×16 grid, 37 chains), a chain count that is not a
+    multiple of the 8 chains per block (128×128 grid, 1,021 chains), the
+    widest row (DIA_MAX_EMB lanes, 5 chains against 4 per block)."""
+    if case == "max":
+        return (*_banded(dev, dia.DIA_MAX_EMB), None, None, 5)
+    fg, C = {"grid32": (grid32, 7), "grid16": (dia_grids[16], 37),
+             "grid128": (dia_grids[128], 1021)}[case]
+    return (fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h,
+            fg.quad_dia_pos, fg.quad_dia_inv, C)
+
+
+@pytest.mark.parametrize("n_steps,case", [
+    pytest.param(s, c, id=str(s) if c == "grid32" else f"{s}-{c}")
+    for c in ("grid32", "grid16", "grid128", "max") for s in (0, 1, 5)])
+def test_dia_proposal_kernel_given_p0_matches_plain(dev, grid32, dia_grids,
+                                                    case, n_steps):
     """Exact mode (p0 from memory) through the wrapper, against the plain
-    route on the same tensors moved to the CPU. Tolerances: x1
-    1e-5·max(1,|plain|); log_acc 1e-5·(|lp0| + ke0)."""
-    fg = grid32
-    C, n = 7, fg.n_cont
+    route on the same tensors moved to the CPU, on the edge shapes of the
+    cluster layout. Tolerances: x1 1e-5·max(1,|plain|); log_acc
+    1e-5·(|lp0| + ke0)."""
+    diag, offs, wdia, h, pos, inv, C = _dia_case(dev, grid32, dia_grids, case)
+    n = diag.shape[0]
     g = torch.Generator(dev).manual_seed(n_steps)
     xc = 2.0 * torch.randn((C, n), generator=g, device=dev)
     im = 0.5 + torch.rand((n,), generator=g, device=dev)
     p0 = torch.randn((C, n), generator=g, device=dev)
-    args = (fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h, im,
-            torch.full((), 0.1, device=dev), n_steps)
-    kw = dict(pos=fg.quad_dia_pos, inv=fg.quad_dia_inv, p0=p0)
+    args = (diag, offs, wdia, h, im, torch.full((), 0.1, device=dev), n_steps)
+    kw = dict(pos=pos, inv=inv, p0=p0)
     before = dia.dia_hmc_proposal.launches
     x1, lacc = dia.dia_hmc_proposal(g, xc, *args, **kw)
     torch.cuda.synchronize()
@@ -101,8 +131,8 @@ def test_dia_proposal_kernel_given_p0_matches_plain(dev, grid32, n_steps):
         None, xc.cpu(), *map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
     assert _rel(x1.cpu(), x1p) < 1e-5
     lp0 = dia.dia_quad_leapfrog(
-        *map(cpu, (xc, p0, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w,
-                   fg.quad_h, im)), 0.1, 0, pos=fg.quad_dia_pos.cpu())[2]
+        *map(cpu, (xc, p0, diag, offs, wdia, h, im)), 0.1, 0,
+        pos=cpu(pos))[2]
     scale = lp0.abs() + 0.5 * (im.cpu()[None] * p0.cpu() ** 2).sum(-1)
     assert torch.all((lacc.cpu() - laccp).abs() <= 1e-5 * scale)
     if n_steps == 0:
@@ -197,32 +227,41 @@ def dia_grids(dev):
     return out
 
 
-@pytest.mark.parametrize("rows,C", [(16, 37), (128, 19)])
+@pytest.mark.parametrize("rows,C", [(16, 37), (128, 19), (128, 1021),
+                                    ("max", 5)])
 @pytest.mark.parametrize("n_steps", [0, 1, 6])
 def test_dia_leapfrog_kernel_matches_plain(dev, dia_grids, rows, C, n_steps):
     """K6 through ``dia_quad_leapfrog`` on latent rows with ``pos``, one
     launch per call, against the plain version on the same tensors in f32
-    and f64. Tolerances: x1, p1 within 1e-4·max(1,|plain|) (f32
-    trajectory, FMA contraction); lp0, lp1 within 1e-5·max(1,|plain|) of
-    plain f32 and 2e-6 of plain f64 (the kernel sums in double). Zero
-    steps return x and p bitwise and lp0 twice."""
-    fg = dia_grids[rows]
-    n = fg.n_cont
-    g = torch.Generator(dev).manual_seed(rows + n_steps)
+    and f64: on the 16×16 grid (8 chains in one block, 37 chains), the
+    128×128 grid (clusters of 8 blocks; 19 and 1,021 chains, neither a
+    multiple of 8) and a band of DIA_MAX_EMB lanes with no embedding (4
+    chains per cluster, 5 chains). Tolerances: x1, p1 within
+    1e-4·max(1,|plain|) (f32 trajectory, FMA contraction); lp0, lp1 within
+    1e-5·max(1,|plain|) of plain f32 and 2e-6 of plain f64 (the kernel
+    sums in double). Zero steps return x and p bitwise and lp0 twice."""
+    if rows == "max":
+        diag, offs, wdia, h = _banded(dev, dia.DIA_MAX_EMB)
+        pos = None
+    else:
+        fg = dia_grids[rows]
+        diag, offs, wdia, h = (fg.quad_diag, fg.quad_dia_offsets,
+                               fg.quad_dia_w, fg.quad_h)
+        pos = fg.quad_dia_pos
+    n = diag.shape[0]
+    g = torch.Generator(dev).manual_seed(n + n_steps)
     im = 0.5 + torch.rand((n,), generator=g, device=dev)
     x = 2.0 * torch.randn((C, n), generator=g, device=dev)
     p = torch.randn((C, n), generator=g, device=dev) / torch.sqrt(im)
-    consts = (fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h,
-              im, torch.full((), 0.05, device=dev))
+    consts = (diag, offs, wdia, h, im, torch.full((), 0.05, device=dev))
     before = dia.dia_quad_leapfrog.launches
-    got = dia.dia_quad_leapfrog(x, p, *consts, n_steps, pos=fg.quad_dia_pos)
+    got = dia.dia_quad_leapfrog(x, p, *consts, n_steps, pos=pos)
     torch.cuda.synchronize()
     assert dia.dia_quad_leapfrog.launches == before + 1
     for dt, tol_l in ((torch.float32, 1e-5), (torch.float64, 2e-6)):
         cast = [a.to(dt) if isinstance(a, torch.Tensor) else a
                 for a in (x, p) + consts]
-        want = dia._plain_dia_quad_leapfrog(*cast, n_steps,
-                                            pos=fg.quad_dia_pos)
+        want = dia._plain_dia_quad_leapfrog(*cast, n_steps, pos=pos)
         assert _rel(got[0], want[0]) < 1e-4 and _rel(got[1], want[1]) < 1e-4
         assert _rel(got[2], want[2]) < tol_l and _rel(got[3], want[3]) < tol_l
     if n_steps == 0:
@@ -249,6 +288,31 @@ def test_dia_leapfrog_kernel_rejects_bad_input(dev):
         dia.dia_quad_leapfrog(x.double(), x.double(), v.double(), (1,),
                               w.double(), v.double(), v.double(), 0.1, 2)
     assert dia.dia_quad_leapfrog.launches == before
+
+
+def test_dia_kernels_alternate_geometries(dev, dia_grids):
+    """K6 and K2 (exact mode) on the 128×128 grid (about 200 KB of shared
+    memory a block), then the 16×16 grid (about 25 KB), then the 128×128
+    grid again: every launch runs under the shared-memory limit the
+    launcher has raised for that kernel, and the repeated calls give the
+    first calls' results bitwise."""
+    seen = {}
+    for rows in (128, 16, 128):
+        fg = dia_grids[rows]
+        n = fg.n_cont
+        g = torch.Generator(dev).manual_seed(rows)
+        x = torch.randn((9, n), generator=g, device=dev)
+        p = torch.randn((9, n), generator=g, device=dev)
+        im = torch.ones(n, device=dev)
+        consts = (fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h,
+                  im, 0.05, 3)
+        out = (*dia.dia_quad_leapfrog(x, p, *consts, pos=fg.quad_dia_pos),
+               *dia.dia_hmc_proposal(g, x, *consts, pos=fg.quad_dia_pos,
+                                     inv=fg.quad_dia_inv, p0=p))
+        torch.cuda.synchronize()
+        if rows in seen:
+            assert all(torch.equal(a, b) for a, b in zip(out, seen[rows]))
+        seen[rows] = out
 
 
 # ---- K3: the NUTS trajectory ----------------------------------------------
@@ -405,9 +469,9 @@ def test_nuts_and_smc_steps_never_sync_with_the_host(dev):
 def _logpot_model(name):
     """Small non-quadratic models that reach K5's branches: discrete slots
     (robot), no quadratic form (denoise; 16x16 is past the reference's
-    TPU gate), J past shared memory (robot with 150 latent depths), exp
-    and division (friends), tied and observed slots with non-index
-    values."""
+    TPU gate), robot with 150 latent depths, exp and division (friends),
+    tied and observed slots with non-index values, a tape of 127 nodes
+    (long: few warps a block)."""
     from lhvi_tpu_torch.models.image import denoise_grid
     from lhvi_tpu_torch.models.relational import (
         friends_smokers,
@@ -427,6 +491,14 @@ def _logpot_model(name):
         return denoise_grid(rows, rows, seed=0)[0]
     if name == "hybrid_chain":
         return hybrid_chain()[0]
+    if name == "long":  # a 127-node tape on a 4-cycle (two colours)
+        dom = lt.Domain([-2.0, 2.0], continuous=True)
+        xs = [lt.RV(dom, name=f"x{i}") for i in range(4)]
+        return lt.Graph(xs, [lt.F(MLNPotential(
+            lambda a: -sum(((a[0] - 0.1 * k) * (a[1] + 0.05 * k)) ** 2
+                           for k in range(18)) / 50.0 - 0.01 * a[0],
+            w=0.7, formula_name="long"), [xs[i], xs[(i + 1) % 4]])
+            for i in range(4)])
     if name == "friends4":  # exp and division in its formula
         rg = friends_smokers(n_people=4, hybrid=True)
         rg.observe("smokes", ("p0",), 1)
@@ -446,13 +518,21 @@ def _logpot_model(name):
 
 @pytest.mark.parametrize("model", ["robot10", "robot150", "denoise6",
                                    "denoise16", "hybrid_chain", "friends4",
-                                   "tied"])
-@pytest.mark.parametrize("C,n_steps", [(1, 0), (13, 1), (300, 5)])
+                                   "tied", "long"])
+@pytest.mark.parametrize("C,n_steps", [(1, 0), (13, 1), (300, 5), (4099, 0)])
 @pytest.mark.parametrize("tempered", [False, True])
 def test_logpot_leapfrog_kernel_matches_tape(dev, model, C, n_steps,
                                              tempered):
     """K5 through ``plan="auto"`` against its plain twin (the tape
-    evaluator over ``tape_energy_grad``) on the same momenta. Tolerances:
+    evaluator over ``tape_energy_grad``) on the same momenta, at chain
+    counts below, at and past a 32-chain tile (4,099 leaves 3 chains in
+    the last block) and on a 127-node tape. At 4,099 chains the kernel
+    takes zero steps (the gradient's half-kick and the energy at the given
+    positions): over 4,099 × 480 edges of the 16×16 grid, an f32 rounding
+    difference between the two routes' positions after a step puts a pair
+    on the other side of the edge term's cap (|Δx| = 0.4, gradient 20 on
+    one side, 0 on the other) often enough to move one momentum by 0.4;
+    the same inputs never do. Tolerances:
     x1, p1 within 1e-4·max(1,|plain|), E0, E1 within 2e-4·max(1,|plain|)
     (tests/test_logpot_kernel.py's bound; f32 sums in another order)."""
     from lhvi_tpu_torch.ops import logpot

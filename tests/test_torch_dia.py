@@ -305,3 +305,79 @@ def test_fuzz_band_detection_and_matvec(trial):
                        None if pos_out is None else torch.from_numpy(pos_out))
     ref = x.astype(np.float64) * diag + x.astype(np.float64) @ J.T
     np.testing.assert_allclose(y.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("K", [2, 4, 8])
+@pytest.mark.parametrize("n_emb", [64, 1024, 16384, 28672])
+def test_dia_launch_chains_per_block(n_emb, K):
+    """K2's and K6's geometry (``dia_launch``): the cluster's slices cover
+    the embedded row (the last slice not empty), each slice a whole number
+    of Philox lane quads; a thread holds at most 32 lane-chain momenta;
+    the shared bytes are the kernel's reckoning, within 227 KB. Small rows
+    take 8 chains in one block; the 128×128 grid's 16,384 lanes 8 chains
+    over a cluster of 8 blocks of 512 threads; DIA_MAX_EMB's 28,672 lanes
+    still run, at 4 chains (2 with 8 offsets)."""
+    geo = dia.dia_launch(n_emb, K)
+    assert geo.cluster in (1, 2, 4, 8) and geo.chains in (1, 2, 4, 8)
+    assert geo.slice % 4 == 0
+    assert geo.cluster * geo.slice >= n_emb > (geo.cluster - 1) * geo.slice
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 512
+    assert -(-geo.slice // geo.threads) * geo.chains <= dia._REG_LANES
+    assert geo.smem == dia._dia_smem(K, geo.chains, geo.slice, geo.threads)
+    assert geo.smem <= dia.DIA_SMEM_LIMIT
+    want = {64: (1, 8), 1024: (1, 8), 16384: (8, 8 if K <= 4 else 4),
+            28672: (8, 4 if K <= 4 else 2)}[n_emb]
+    assert (geo.cluster, geo.chains) == want
+
+
+def test_dia_max_emb_is_kept():
+    """DIA_MAX_EMB stays 28,672 lanes; one lane more raises."""
+    assert dia.DIA_MAX_EMB == 28672
+    with pytest.raises(ValueError, match="DIA_MAX_EMB"):
+        dia.dia_launch(dia.DIA_MAX_EMB + 1, 4)
+
+
+def test_inverse_map_on_the_device_matches_pos_to_inv(grids):
+    """``_inv_of`` (K6's inverse embedding, built from ``pos`` where the
+    tensors live) equals the host's ``pos_to_inv`` and the compiled
+    ``quad_dia_inv``."""
+    _, _, fg = grids
+    n_emb = fg.quad_dia_w.shape[1]
+    got = dia._inv_of(fg.quad_dia_pos, fg.n_cont, n_emb)
+    want = dia.pos_to_inv(fg.quad_dia_pos.numpy(), fg.n_cont)
+    assert torch.equal(got, torch.from_numpy(want.astype(np.int64)))
+    assert torch.equal(got, fg.quad_dia_inv)
+
+
+@pytest.mark.parametrize("refresh", [False, True])
+def test_dia_proposal_embeds_current_constants(grids, refresh):
+    """K2 keeps no embedded copy of diag, h or inv_mass: they are read
+    through inv on every call. On CPU tensors the proposal equals
+    re-embedding every input by scatter and running the plain trajectory,
+    also after an in-place mass refresh and a change of the diagonal
+    between two calls (bitwise: the same embedded rows, the same
+    arithmetic)."""
+    _, _, fg = grids
+    x, p, im, _ = _embedded_inputs(fg, np.random.default_rng(4), 6)
+    x, p, im = (torch.from_numpy(a) for a in (x, p, im))
+    diag, h = fg.quad_diag.clone(), fg.quad_h
+    offs, wdia, pos = fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_dia_pos
+
+    def call():
+        return dia.dia_hmc_proposal(None, x, diag, offs, wdia, h, im, 0.07,
+                                    5, pos=pos, inv=fg.quad_dia_inv, p0=p)
+
+    first = call()
+    if refresh:
+        im.mul_(1.7)
+        diag.add_(0.25)
+    got = call()
+    emb = lambda a: dia._embed(a, pos, wdia.shape[1])  # noqa: E731
+    x1, p1, lp0, lp1 = dia._torch_dia_leapfrog(
+        emb(x), emb(p), emb(diag), offs, wdia, emb(h), emb(im), 0.07, 5)
+    ime = emb(im)
+    lacc = torch.clamp((lp1 - lp0) + (dia._kinetic(ime, emb(p))
+                                      - dia._kinetic(ime, p1)), max=0.0)
+    assert torch.equal(got[0], x1[..., pos])
+    assert torch.equal(got[1], lacc)
+    assert torch.equal(first[0], got[0]) == (not refresh)

@@ -41,6 +41,7 @@ import lhvi_tpu_torch.potentials as pot  # noqa: E402
 from lhvi_tpu_torch.engines import smc  # noqa: E402
 from lhvi_tpu_torch.ops import logpot  # noqa: E402
 from lhvi_tpu_torch.ops.logpot_tape import (  # noqa: E402
+    MAX_NODES,
     tape_forward,
     tape_reverse,
     trace_planar,
@@ -128,6 +129,8 @@ _UNFUSED = {"planar_a", "planar_b"}
 MODELS = {
     "robot10": _robot(10),
     "robot24": _robot(24),
+    "robot100": _robot(100),
+    "robot150": _robot(150),
     "denoise6": _denoise(6),
     "denoise11": _denoise(11),
     "denoise12": _denoise(12),
@@ -438,9 +441,9 @@ def test_kernel_plan_equals_the_reference_gated_plan(name):
     a, b = logpot.logpot_plan(fg), logpot.kernel_plan(fg)
     assert a is not None and b is not None
     assert (a.n_active, a.acm, a.adm, a.pm) == (b.n_active, b.acm, b.adm, b.pm)
-    for k in ("row_bucket", "bucket_tape", "tape_op", "tape_a", "tape_b",
-              "tape_c", "cidx", "cconst", "prm", "w", "csr_ptr", "csr_ent",
-              "dvar", "dlat", "dconst", "dtab"):
+    for k in ("bucket_tape", "tape_pack", "cidx", "cconst", "prm", "w",
+              "row_order", "segs", "color_ptr", "dvar", "dlat", "dconst",
+              "dtab"):
         assert torch.equal(getattr(a, k), getattr(b, k)), (name, k)
     assert [bp.tape for bp in a.buckets] == [bp.tape for bp in b.buckets]
 
@@ -514,3 +517,89 @@ def test_auto_on_cuda_tensors_is_the_kernel_plan():
         with pytest.raises(NotImplementedError):
             logpot._resolve_plan(bad, "auto", on_card)
         assert logpot._resolve_plan(bad, "auto", torch.zeros(1)) is None
+
+
+@functools.lru_cache(maxsize=None)
+def _port(name):
+    """The port's compile of a model alone (no reference compile)."""
+    kw = {"fuse_quadratic": False} if name in _UNFUSED else {}
+    return lt.compile_graph(MODELS[name](PORT), "cpu", **kw)
+
+
+_K5_GRAPHS = ["robot10", "robot100", "robot150", "denoise6", "denoise11",
+              "denoise16"]
+
+
+@pytest.mark.parametrize("C", [1, 13, 4099, 16384])
+@pytest.mark.parametrize("name", _K5_GRAPHS)
+def test_k5_launch_covers_every_chain_within_shared_memory(name, C):
+    """K5's geometry (``k5_launch``) on the robot and denoising graphs:
+    blocks of a power-of-two number of chains (at most 32, and no more
+    than C needs) cover every chain exactly once, threads are whole warps
+    (at most 1,024), and the shared bytes are the kernel's reckoning
+    (``_k5_smem``), within 227 KB. At the main shapes the tile is 32
+    chains: 14 warps on robot_map(100) (one colour of 14 rows) with the
+    tables and J staged, 32 warps on the 11×11 grid."""
+    plan = logpot.kernel_plan(_port(name))
+    geo = logpot.k5_launch(plan, C)
+    blocks = -(-C // geo.chains)
+    assert geo.chains & (geo.chains - 1) == 0 and 1 <= geo.chains <= 32
+    assert geo.chains < 2 * C
+    assert blocks * geo.chains >= C > (blocks - 1) * geo.chains
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 1024
+    assert geo.smem == logpot._k5_smem(plan, geo.threads, geo.chains,
+                                       geo.stage, geo.j_smem)
+    assert geo.smem <= logpot.K5_SMEM_LIMIT
+    assert logpot.k5_launch(plan, C) is geo
+    if C >= 4099:
+        assert geo.chains == 32
+    if (name, C) == ("robot100", 16384):
+        assert geo.threads == 14 * 32 and geo.stage and geo.j_smem
+    if name == "denoise11" and C >= 4099:
+        assert geo.threads == 1024 and geo.stage
+
+
+def _sized_plan(n, L, has_quad):
+    """A stand-in plan with the sizes ``k5_launch`` reads: n latents, one
+    bucket of 64 rows in one colour, tapes of L nodes, 2 slots."""
+    return types.SimpleNamespace(
+        n_cont=n, n_rows=64, acm=2, pm=2, tape_pack=torch.zeros((L, 4)),
+        buckets=[None], seg_list=[(0, 0, 64)], color_list=[0, 1, 1],
+        n_colors=1, max_tape=L, has_quad=has_quad, launch_cache={})
+
+
+@pytest.mark.parametrize("n", [1, 121, 1408, 2048])
+def test_k5_launch_over_tape_lengths(n):
+    """Every tape length the tracer admits (1–128 nodes), at latent counts
+    up to the widest the reference's gate can admit (its estimate pads to
+    2,048 lanes without a quadratic form and to 1,408 with one): one chain
+    and one warp fit K5's shared memory (``kernel_plan``'s admission), and
+    the tile ``k5_launch`` picks at C ∈ {1, 13, 4,099, 16,384} covers every
+    chain within 227 KB."""
+    for L in range(1, MAX_NODES + 1):
+        plan = _sized_plan(n, L, has_quad=n <= 1408)
+        assert logpot._k5_smem(plan, 32, 1, False, False) <= \
+            logpot.K5_SMEM_LIMIT
+        for C in (1, 13, 4099, 16384):
+            geo = logpot.k5_launch(plan, C)
+            assert -(-C // geo.chains) * geo.chains >= C
+            assert geo.threads % 32 == 0 and geo.threads <= 1024
+            assert geo.smem <= logpot.K5_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name", ["robot10", "robot24", "robot100",
+                                  "robot150", "denoise6", "denoise11",
+                                  "denoise12", "denoise16", "friends4",
+                                  "hybrid_chain", "tied_and_valued",
+                                  "planar_a", "planar_b"])
+def test_kernel_plan_admits_the_reference_gate_and_main_graphs(name):
+    """K5's plan exists wherever the reference's gate admits a graph, on
+    the robot maps (10, 100, 150 segments) and the 6×6, 11×11 and 16×16
+    denoising grids, and on the 12×12 grid past that gate, with a launch
+    geometry at 4,099 chains."""
+    fg = _port(name)
+    assert (logpot.logpot_plan(fg) is not None or name in _K5_GRAPHS
+            or name == "denoise12")
+    plan = logpot.kernel_plan(fg)
+    assert plan is not None
+    assert logpot.k5_launch(plan, 4099).smem <= logpot.K5_SMEM_LIMIT

@@ -6,9 +6,10 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --profile`` instead builds the kernels and
-profiles the ``grid128x128`` HMC and ``smc_denoise11`` fused cells with
-``torch.profiler``: device idle share, kernels per unit, the largest
-kernels' shares; PERF.md §5 reads it.)
+profiles the ``grid10x10`` HMC, ``nuts10x10``, ``grid128x128`` HMC and
+``smc_denoise11`` fused cells with ``torch.profiler``: device idle share,
+kernels per unit, the largest kernels' shares; then K1, K2, K3 and K5
+alone at zero and at the main path's steps. PERF.md §5 reads it.)
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -25,7 +26,8 @@ Phases (any failure raises and the script exits non-zero):
    DIA_MAX_EMB lanes);
 5. K3 (NUTS trajectory) against its plain version (the lockstep loop) on
    the same momenta and uniforms table, at the bench shape (n = 82,
-   65,536 chains, max_depth 4), at max_depth 8 and at n = 3,246, then its
+   65,536 chains, max_depth 4), at max_depth 8 and at n = 3,246 (each
+   also timed on the main path's route, in-kernel Philox), then its
    in-kernel uniforms; K4 (SMC weight pipeline) against its plain version
    at N ∈ {7, 1000, 65,536}; K5 (fused non-quadratic leapfrog) against
    both plain versions (autograd, and the tape twin) on ``robot_map(100)``
@@ -56,7 +58,8 @@ Phases (any failure raises and the script exits non-zero):
 
 The last three lines are the kernels' JSON record (each kernel's error,
 times, launches on its path and its bound on this card from this run's
-shapes; K2, K5 and K6 also their launch geometry), the card's name and
+shapes; every kernel but K4 also its launch geometry; K1 and K3 their
+times at n = 3,246, K3 its Philox route's), the card's name and
 power limit, and ``{"ok": true, "device":
 {...}}``. The script imports nothing of JAX.
 """
@@ -163,15 +166,24 @@ def phase_k1(dev, cases=((10, 65536), (64, 4096))):
         ok = all(torch.isfinite(a).all() for a in got)
         ms = time_ms(lambda: lf.quad_leapfrog(*args))
         plain_ms = time_ms(lambda: lf._torch_quad_leapfrog(*args))
+        geo = lf.k1_launch(n, C, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
         log(f"[K1] {rows}x{rows} grid n={n} C={C} 8 steps: max abs err "
             f"{abs_err:.3e}, max rel err x1 {errs[0]:.3e} p1 {errs[1]:.3e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; geometry {geo}")
         if not ok or max(errs) > tol:
             raise AssertionError(f"K1 disagrees with its plain version at n={n}")
         if rows == 10:  # the main path's shape: 9 products x·J per chain
             record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                           **bound(nbytes(x, p, fg.quad_J, fg.quad_h, im, eps,
-                                         *got), 2 * C * n * n * 9))
+                                         *got), 2 * C * n * n * 9),
+                          geometry=dict(layout=geo.layout,
+                                        chains_per_warp=geo.chains,
+                                        threads=32 * geo.warps,
+                                        smem_bytes=geo.smem, grid=geo.grid,
+                                        j_in_smem=geo.j_smem))
+        else:
+            record["ms_n3246"], record["plain_ms_n3246"] = ms, plain_ms
     return record
 
 
@@ -640,8 +652,13 @@ def phase_k3(dev, cases=((10, 65536, 4), (10, 8192, 8), (64, 1024, 4))):
                    and torch.equal(wrap[3], kern[4]))
         ms = time_ms(lambda: nt._cuda_nuts_traj(
             xc, p0, fg.quad_J, fg.quad_h, im, eps, D, uniforms=U))
+        # the main path's route: in-kernel Philox uniforms, no table
+        philox_ms = time_ms(lambda: nt._cuda_nuts_traj(
+            xc, p0, fg.quad_J, fg.quad_h, im, eps, D, 12345, 0))
         plain_ms = time_ms(lambda: nuts._nuts_lockstep(
             fg, None, xc, None, eps, im, D, uniforms=U, p0=p0))
+        geo = nt.k3_launch(n, D, C, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
         log(f"[K3] {rows}x{rows} grid n={n} C={C} max_depth={D}: "
             f"{int((~agree).sum())} chains disagree with plain f32, "
             f"{int((~agree64).sum())} with plain f64; q_prop max abs err "
@@ -651,7 +668,8 @@ def phase_k3(dev, cases=((10, 65536, 4), (10, 8192, 8), (64, 1024, 4))):
             f"{float(plain[3].float().mean()):.4f}), mean leaves "
             f"{float(kern[2].float().mean()):.4f}, divergent "
             f"{int(kern[4].sum())}; wrapper equals launcher: {wrap_ok}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms (uniforms table; in-kernel Philox "
+            f"{philox_ms:.4f} ms), plain {plain_ms:.4f} ms; geometry {geo}")
         frac = float(agree.float().mean())
         if (frac < min_agree or float(agree64.float().mean()) < min_agree
                 or q_rel > tol_q or acc64 > tol_acc or not wrap_ok
@@ -662,9 +680,16 @@ def phase_k3(dev, cases=((10, 65536, 4), (10, 8192, 8), (64, 1024, 4))):
             # this run's work: one product q·J per chain at the start and
             # one per leaf the trees took
             record = dict(max_abs_err=q_abs, ms=ms, plain_ms=plain_ms,
+                          ms_philox=philox_ms,
                           **bound(nbytes(xc, p0, fg.quad_J, fg.quad_h, im,
                                          eps, U, *kern),
-                                  2 * n * n * (C + int(kern[2].sum()))))
+                                  2 * n * n * (C + int(kern[2].sum()))),
+                          geometry=dict(layout=geo.layout,
+                                        slots=geo.slots,
+                                        threads=32 * geo.warps,
+                                        smem_bytes=geo.smem, grid=geo.grid))
+        elif n > 256:
+            record["ms_n3246"], record["plain_ms_n3246"] = ms, plain_ms
 
     # in-kernel Philox uniforms through the wrapper
     g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
@@ -1416,16 +1441,40 @@ def profile_window(label, run, units, unit, smi):
 
 
 def profile_cells(dev, smi):
-    """``--profile``: the ``grid128x128`` HMC cell (1,024 chains, 20
+    """``--profile``: the ``grid10x10`` HMC cell (65,536 chains, 20
+    transitions, K1), the ``nuts10x10`` cell (65,536 chains, max_depth 4,
+    20 transitions, K3), the ``grid128x128`` HMC cell (1,024 chains, 20
     transitions, K2) and the ``smc_denoise11`` fused cell (16,384
     particles, a fixed schedule of 50 temperatures, K5), as PERF.md §5
-    reads them."""
+    reads them, all with streamed diagnostics off."""
     import torch
 
     from lhvi_tpu_torch import compile_graph
-    from lhvi_tpu_torch.engines import hmc, smc
+    from lhvi_tpu_torch.engines import hmc, nuts, smc
     from lhvi_tpu_torch.models.toy import gaussian_grid
 
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg10 = compile_graph(g, dev)
+    hcfg = hmc.HMCConfig(n_leapfrog=8, init_step_size=0.12)
+    ncfg = nuts.NUTSConfig(max_depth=4, init_step_size=0.12, adapt_mass=False)
+
+    def grid10():
+        m, _, _ = hmc.run_hmc(fg10, torch.Generator(dev).manual_seed(0), hcfg,
+                              n_chains=65536, n_warmup=0, n_samples=20,
+                              collect="moments", stream_diag=False)
+        float(m["mean"][0])
+
+    def nuts10():
+        m, _, _ = nuts.run_nuts(fg10, torch.Generator(dev).manual_seed(0),
+                                ncfg, n_chains=65536, n_warmup=0,
+                                n_samples=20, collect="moments",
+                                stream_diag=False)
+        float(m["mean"][0])
+
+    profile_window("grid10x10 HMC, 65,536 chains x 20 samples", grid10, 20,
+                   "transition", smi)
+    profile_window("nuts10x10, 65,536 chains x 20 samples, max_depth 4",
+                   nuts10, 20, "transition", smi)
     g, _ = gaussian_grid(128, 128, seed=1, evidence_frac=0.05)
     fg = compile_graph(g, dev, quad_max_n=4096)
     cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.05)
@@ -1451,12 +1500,36 @@ def profile_cells(dev, smi):
 
 
 def step_costs(dev, smi):
-    """K2 and K5 alone (their launchers, CUDA-event medians) at zero steps
-    and at the main path's steps: what a call costs before its first step,
-    and what each step adds."""
+    """K1, K2, K3 and K5 alone (their launchers, CUDA-event medians) at
+    zero steps (depths) and at the main path's: what a call costs before
+    its first step, and what each step adds. K1 at the 10×10 grid, 65,536
+    chains, 0 / 1 / 8 steps; K3 there at max_depth 0 / 1 / 4 on the main
+    path's route (in-kernel Philox) from the posterior."""
     import torch
 
-    from lhvi_tpu_torch.ops import dia, logpot
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+    from lhvi_tpu_torch.ops import dia, leapfrog as lf, logpot
+    from lhvi_tpu_torch.ops import nuts_traj as nt
+
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg10 = compile_graph(g, dev)
+    n10, C10 = fg10.n_cont, 65536
+    gen10 = torch.Generator(dev).manual_seed(3)
+    xc = posterior_draws(fg10.quad_J, fg10.quad_h, C10, gen10)
+    p10 = torch.randn((C10, n10), generator=gen10, device=dev)
+    im10 = torch.ones(n10, device=dev)
+    eps10 = torch.full((), 0.12, device=dev)
+    ms = [time_ms(lambda: lf._cuda_quad_leapfrog(
+        xc, p10, fg10.quad_J, fg10.quad_h, im10, eps10, s)) for s in (0, 1, 8)]
+    log(f"[profile] K1 alone, 10x10 grid, C={C10}: 0 / 1 / 8 steps "
+        f"{ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f} ms; on {smi}")
+    ms = [time_ms(lambda: nt._cuda_nuts_traj(
+        xc, p10, fg10.quad_J, fg10.quad_h, im10, eps10, d, 12345, 0))
+        for d in (0, 1, 4)]
+    log(f"[profile] K3 alone (in-kernel Philox), 10x10 grid, C={C10}: "
+        f"max_depth 0 / 1 / 4 {ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f} ms; on "
+        f"{smi}")
 
     fg = k6_grid(dev)
     n = fg.n_cont

@@ -16,6 +16,7 @@ into an exception.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,8 +35,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
 _SIGNATURES = {
-    # x, p, J, h, inv_mass, eps, x_out, p_out, C, n, n_steps, stream
-    "lhvi_quad_leapfrog": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, p, J, h, inv_mass, eps, x_out, p_out, C, n, n_steps, layout,
+    # chains, warps, smem, grid, j_smem, scratch (or null), barrier (or
+    # null), stream
+    "lhvi_quad_leapfrog": (_P,) * 8 + (_I,) * 9 + (_P, _P, _P),
     # x, diag, wdia, h, inv_mass, inv (or null), p0 (or null), eps, x_out,
     # log_acc, C, n, n_emb, K, offsets (host int[K]), n_steps, seed,
     # offset, cluster, threads, chains, slice, smem, stream
@@ -48,10 +51,10 @@ _SIGNATURES = {
                          + (_P,),
     # q0, p0, J, h, inv_mass, eps, uniforms (or null), q_prop, sum_acc,
     # n_leaf, depth, diverged, scratch (or null), C, n, max_depth, seed,
-    # offset, stream
-    "lhvi_nuts_traj": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _U64, _U64, _P),
-    # C, n, max_depth -> floats of global scratch lhvi_nuts_traj needs
+    # offset, layout, slots, warps, smem, grid, k_tile, stream
+    "lhvi_nuts_traj": (_P,) * 13 + (_I,) * 3 + (_U64, _U64) + (_I,) * 6
+                      + (_P,),
+    # grid, n, max_depth -> floats of global scratch the block layout needs
     "lhvi_nuts_traj_scratch": (_I, _I, _I),
     # log_w, lw_norm, cum, stats (step_z, ess), N, stream
     "lhvi_weight_pipeline": (_P, _P, _P, _P, _I, _P),
@@ -130,6 +133,15 @@ def lib() -> ctypes.CDLL:
         handle.lhvi_cuda_error_string.restype = ctypes.c_char_p
         _lib = handle
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the launch geometries'
+    grids are sized to fill them)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(code: int, what: str) -> None:

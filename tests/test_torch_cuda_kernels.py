@@ -33,13 +33,25 @@ def _rel(a, b):
     return float((d / torch.clamp(b.double().abs(), min=1.0)).max())
 
 
-@pytest.mark.parametrize("n,C", [(82, 100), (37, 1), (300, 45), (529, 3)])
-@pytest.mark.parametrize("n_steps", [0, 1, 3])
+# resident layout: NP = ceil(n/32) = 1..8 (8, 4 or 2 chains a warp, so 32,
+# 16 or 8 a block), C ragged against each; cooperative layout: n past 256
+# at C = 1, 3, 45 and 4,096 (128 × 128 tiles), n = 3,246 at one step
+_K1_CASES = ([(n, C, s) for n, C in [(82, 100), (37, 1), (300, 45), (529, 3)]
+              + [(n, C) for n in (1, 31, 33, 200, 256) for C in (1, 101)]
+              + [(n, C) for n in (257, 529, 1100) for C in (1, 3, 45, 4096)
+                 if (n, C) != (529, 3)]
+              for s in (0, 1, 3)]
+             + [(3246, C, 1) for C in (1, 3, 45, 4096)])
+
+
+@pytest.mark.parametrize("n,C,n_steps", _K1_CASES)
 def test_quad_leapfrog_kernel_matches_plain(dev, n, C, n_steps):
-    """n ≤ 256 takes the resident layout (64 chains, J in shared memory),
-    n > 256 the tiled one (32 chains, 16 × 128 J tiles); n and C are ragged
-    against both tilings. Tolerance 1e-5·max(1,|plain|): f32 dot products
-    in another order."""
+    """n ≤ 256 takes the resident layout (a warp holds 8, 4 or 2 chains for
+    all their columns; J in shared memory where it fits), n > 256 the
+    cooperative one (one persistent grid of 128 × 128 output tiles, a
+    grid barrier a step); n and C are ragged against both tilings; at
+    n = 3,246 one step. Tolerance 1e-5·max(1,|plain|): f32 dot products in
+    another order."""
     g = torch.Generator(dev).manual_seed(n * 7 + C)
     A = torch.randn((n, n), generator=g, device=dev) / n**0.5
     J = (A @ A.T + torch.eye(n, device=dev)).contiguous()
@@ -333,13 +345,23 @@ def _nuts_case(dev, n, C, D, seed):
     return J, h, q0, p0, im, U
 
 
-@pytest.mark.parametrize("n,C,D", [(5, 70, 6), (82, 300, 4), (82, 64, 9),
-                                   (300, 33, 4), (1100, 9, 3)])
+# the warp layout's edges (n = 1, 32, 33, 96, 256; chain counts that are
+# no multiple of the slots or of a warp's range), max_depth 0, 1 and 20
+# (the warp layout takes every depth up to K3's 20 at n <= 256), the block
+# layout (n = 257, 300, 1,100), and chains that stop at very different
+# depths (every 7th starts far out and diverges at once)
+_K3_CASES = [(5, 70, 6), (82, 300, 4), (82, 64, 9), (300, 33, 4), (1100, 9, 3),
+             (1, 37, 4), (32, 301, 5), (33, 99, 4), (96, 130, 4),
+             (256, 45, 4), (257, 19, 4), (82, 77, 0), (82, 301, 1),
+             (33, 21, 20), (256, 13, 20), (257, 11, 6)]
+
+
+@pytest.mark.parametrize("n,C,D", _K3_CASES + [(82, 301, "spread")])
 def test_nuts_traj_kernel_matches_plain(dev, n, C, D):
-    """Both layouts (warp per chain up to n = 256, block per chain past
-    it) against the lockstep loop in f64 on the same p0 and uniforms
-    table: on ≥ 97% of chains depth, leaf count and divergence are equal
-    and q_prop is within 1e-4·max(1,|plain|) (each decision, the
+    """Both layouts (a warp holding 4 or 2 chains up to n = 256, a block
+    holding 8 past it) against the lockstep loop in f64 on the same p0 and
+    uniforms table: on ≥ 97% of chains depth, leaf count and divergence
+    are equal and q_prop is within 1e-4·max(1,|plain|) (each decision, the
     multinomial choices included, is a threshold test on sums taken in
     another order); on those chains the summed accept statistic is within
     1e-4 per leaf."""
@@ -348,7 +370,12 @@ def test_nuts_traj_kernel_matches_plain(dev, n, C, D):
     from lhvi_tpu_torch.engines import nuts
     from lhvi_tpu_torch.ops import nuts_traj as nt
 
+    spread = D == "spread"
+    if spread:
+        D = 8
     J, h, q0, p0, im, U = _nuts_case(dev, n, C, D, n + C)
+    if spread:  # every 7th chain 1,000 times the momentum: its energy
+        p0[::7] *= 1e3  # error passes 1,000 at the first leaf, a divergence
     eps = torch.full((), 0.9 / n**0.25, device=dev)
     before = nt.nuts_trajectory.launches
     got = nt._cuda_nuts_traj(q0, p0, J, h, im, eps, D, uniforms=U)
@@ -368,7 +395,32 @@ def test_nuts_traj_kernel_matches_plain(dev, n, C, D):
     assert float(agree.float().mean()) >= 0.97
     tol = 1e-4 * got[2][agree].double()
     assert torch.all((got[1][agree].double() - want[1][agree]).abs() <= tol)
-    assert int(got[3].min()) >= 1 and int(got[3].max()) <= D
+    assert int(got[3].min()) >= min(D, 1) and int(got[3].max()) <= D
+    if D == 0:
+        assert torch.equal(got[0], q0) and int(got[2].abs().sum()) == 0
+    if spread:  # the case is what it claims: divergent and deep chains
+        assert bool(want[4][::7].all()) and int(want[3][::7].max()) == 1
+        assert int(want[3].max()) >= 3, want[3]
+
+
+@pytest.mark.parametrize("n,D", [(82, 4), (33, 9), (300, 4)])
+def test_nuts_traj_kernel_is_bitwise_reproducible(dev, n, D):
+    """Two launches on the same inputs give the same bits, on both uniform
+    routes and both layouts: each warp (block) refills its slots from a
+    fixed range of chains in order, so which slot, and so which order of
+    sums, a chain gets depends only on the chains' own data."""
+    from lhvi_tpu_torch.ops import nuts_traj as nt
+
+    C = 1000
+    J, h, q0, p0, im, U = _nuts_case(dev, n, C, D, 7 * n + D)
+    eps = torch.full((), 0.9 / n**0.25, device=dev)
+    for uni, seed in ((U, 0), (None, 12345)):
+        a = nt._cuda_nuts_traj(q0, p0, J, h, im, eps, D, seed, 8, uni)
+        b = nt._cuda_nuts_traj(q0, p0, J, h, im, eps, D, seed, 8, uni)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert int(a[3].max()) >= 2  # the chains' trees differ in depth
+        assert int(a[3].min()) < int(a[3].max())
 
 
 def test_nuts_traj_kernel_in_kernel_uniforms(dev):
@@ -516,10 +568,19 @@ def _logpot_model(name):
     ])
 
 
-@pytest.mark.parametrize("model", ["robot10", "robot150", "denoise6",
-                                   "denoise16", "hybrid_chain", "friends4",
-                                   "tied", "long"])
-@pytest.mark.parametrize("C,n_steps", [(1, 0), (13, 1), (300, 5), (4099, 0)])
+_K5_MODELS = ["robot10", "robot150", "denoise6", "denoise16", "hybrid_chain",
+              "friends4", "tied", "long"]
+
+
+def _k5_steps_at_4099(model):
+    """Steps the 4,099-chain case takes: zero on the denoising grids, whose
+    edge term has a kink (see below), two on every other model."""
+    return 0 if model.startswith("denoise") else 2
+
+
+@pytest.mark.parametrize("model,C,n_steps", [
+    (m, C, s) for m in _K5_MODELS
+    for C, s in ((1, 0), (13, 1), (300, 5), (4099, _k5_steps_at_4099(m)))])
 @pytest.mark.parametrize("tempered", [False, True])
 def test_logpot_leapfrog_kernel_matches_tape(dev, model, C, n_steps,
                                              tempered):
@@ -527,12 +588,14 @@ def test_logpot_leapfrog_kernel_matches_tape(dev, model, C, n_steps,
     evaluator over ``tape_energy_grad``) on the same momenta, at chain
     counts below, at and past a 32-chain tile (4,099 leaves 3 chains in
     the last block) and on a 127-node tape. At 4,099 chains the kernel
-    takes zero steps (the gradient's half-kick and the energy at the given
-    positions): over 4,099 × 480 edges of the 16×16 grid, an f32 rounding
-    difference between the two routes' positions after a step puts a pair
-    on the other side of the edge term's cap (|Δx| = 0.4, gradient 20 on
-    one side, 0 on the other) often enough to move one momentum by 0.4;
-    the same inputs never do. Tolerances:
+    takes two steps on every model without a kink, so a multi-step
+    trajectory on a ragged last tile is held everywhere, and zero steps on
+    the denoising grids (the gradient's half-kick and the energy at the
+    given positions): over 4,099 × 480 edges of the 16×16 grid, an f32
+    rounding difference between the two routes' positions after a step
+    puts a pair on the other side of the edge term's cap (|Δx| = 0.4,
+    gradient 20 on one side, 0 on the other) often enough to move one
+    momentum by 0.4; the same inputs never do. Tolerances:
     x1, p1 within 1e-4·max(1,|plain|), E0, E1 within 2e-4·max(1,|plain|)
     (tests/test_logpot_kernel.py's bound; f32 sums in another order)."""
     from lhvi_tpu_torch.ops import logpot

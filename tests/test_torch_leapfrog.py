@@ -7,6 +7,9 @@ tolerance is |Δ| ≤ 1e-5·max(1, |ref|): the same f32 arithmetic with the
 runs only on the card (chip_smoke.py, tests/test_torch_cuda_kernels.py).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -111,3 +114,77 @@ def test_ell_quad_leapfrog_matches_reference(sparse_fg, n_steps):
         lf.ell_matvec(torch.from_numpy(x), diag, col.long(), w).numpy(),
         np.asarray(ref_lf.ell_matvec(jnp.asarray(x), *map(jnp.asarray,
                                                           tabs[:3]))))
+
+
+# ---- K1's launch geometry (csrc/quad_leapfrog.cu checks what it is given) --
+
+_CSRC = Path(lf.__file__).parent / "csrc" / "quad_leapfrog.cu"
+
+
+def _cu_const(name):
+    """An integer ``constexpr`` of the kernel source, as the kernel sees it."""
+    m = re.search(rf"constexpr (?:int|size_t) {name} = ([^;]+);",
+                  _CSRC.read_text())
+    assert m, name
+    return int(eval(m.group(1), {"sizeof": lambda _: 4, "float": None}))
+
+
+def test_k1_launch_mirrors_the_kernel_constants():
+    """The Python geometry and the launcher's checks agree on the layout
+    edge (n = 256), the block shapes and the shared-memory limit."""
+    src = _CSRC.read_text()
+    assert "n > 256 || chains != m" in src
+    assert lf.K1_RESIDENT_MAX_N == 256
+    assert _cu_const("kRWarps") == lf.K1_RESIDENT_WARPS
+    assert _cu_const("kBM") == _cu_const("kBN") == lf.K1_TILE
+    assert _cu_const("kBK") == lf.K1_BK
+    assert _cu_const("kCThreads") == 32 * lf.K1_COOP_WARPS
+    assert _cu_const("kSmemLimit") == lf.K1_SMEM_LIMIT == 232448
+    assert "__launch_bounds__(kCThreads, 2)" in src
+    assert lf.K1_COOP_BLOCKS_PER_SM == 2
+
+
+@pytest.mark.parametrize("C", [1, 3, 45, 101, 4096, 65536])
+def test_k1_launch_fits_and_switches_layout_at_256(C):
+    """For every n in 1..4,096 (a stride past 300): the geometry fits
+    232,448 bytes; n ≤ 256 is resident with 8, 4 or 2 chains a warp by
+    NP = ceil(n/32), a grid covering C exactly once, the tile's pad
+    stride and J in shared memory only while 113 KB still holds it; past
+    256 the cooperative layout, at most 264 blocks and never more than
+    the output tiles, with the padded scratch the kernel lays out."""
+    for n in list(range(1, 301)) + list(range(301, 4097, 37)) + [4096]:
+        geo = lf.k1_launch(n, C)
+        assert geo.smem <= 232448
+        if n <= 256:
+            np_ = -(-n // 32)
+            M = 8 if np_ <= 3 else (4 if np_ <= 6 else 2)
+            stride = 4 * M + (4 if M >= 4 else 2)
+            tile = -(-4 * n * stride // 16) * 16
+            assert geo.layout == "resident" and geo.chains == M
+            assert geo.warps == 4 and stride == lf.k1_tile_stride(M)
+            assert (geo.grid - 1) * 4 * M < C <= geo.grid * 4 * M
+            assert geo.smem == tile + (4 * n * n if geo.j_smem else 0)
+            assert geo.j_smem == (tile + 4 * n * n <= 113 * 1024)
+            assert geo.scratch == 0
+        else:
+            Cp, kp, npd = (-(-C // 128) * 128, -(-n // 16) * 16,
+                           -(-n // 128) * 128)
+            tiles = (Cp // 128) * (npd // 128)
+            assert geo.layout == "coop" and geo.chains == 128
+            assert geo.warps == 8 and geo.smem == 2 * 16 * 256 * 4
+            assert geo.grid == min(tiles, 264) and not geo.j_smem
+            assert geo.scratch == kp * npd + 2 * kp * Cp + npd * Cp
+
+
+def test_k1_launch_at_the_bench_shapes():
+    """The 10×10 grid (n = 82) at 65,536 chains: 8 chains a warp, 32 a
+    block, J beside the tile; the 64×64 grid (n = 3,246) at 4,096 chains:
+    832 output tiles over 264 resident blocks."""
+    assert lf.k1_launch(82, 65536) == lf.K1Launch(
+        "resident", 8, 4, 11808 + 26896, 2048, True, 0)
+    geo = lf.k1_launch(3246, 4096)
+    assert geo.layout == "coop" and geo.grid == 264
+    assert lf.k1_launch(3246, 4096, sms=100).grid == 200
+    for bad in ((0, 5), (4097, 5), (82, 0)):
+        with pytest.raises(ValueError):
+            lf.k1_launch(*bad)

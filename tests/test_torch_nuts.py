@@ -11,6 +11,9 @@ reference's own tests, and one transition's depth and acceptance
 statistics are compared between the packages from the same states.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -305,3 +308,101 @@ def test_samples_mode_and_config_mapping():
     assert 1.0 <= float(diag["mean_depth"]) <= 5.0
     res = hmc.HMCResult(fg, s_xc, s_xd, diag)
     assert res.map(a) == res.mean(a)
+
+
+# ---- K3's launch geometry (csrc/nuts_traj.cu checks what it is given) ------
+
+_K3_SRC = Path(nuts_traj.__file__).parent / "csrc" / "nuts_traj.cu"
+
+
+def _k3_const(name):
+    """An integer ``constexpr`` of the kernel source, as the kernel sees it."""
+    m = re.search(rf"constexpr (?:int|size_t) {name} = ([^;]+);",
+                  _K3_SRC.read_text())
+    assert m, name
+    return int(eval(m.group(1)))
+
+
+def test_k3_launch_mirrors_the_kernel_constants():
+    """The Python geometry and the launcher's checks agree on the layout
+    edges, the slot counts, the block shape, the blocks an SM and the
+    limits."""
+    src = _K3_SRC.read_text()
+    assert "n > 256 || (slots != 1 && slots != 2 && slots != 4)" in src
+    assert "const int m_max = np <= 2 ? 4 : 2;" in src
+    assert "return max_depth > 2 ? max_depth - 1 : 1;" in src
+    assert "__launch_bounds__(kMaxWarps * 32, M * NP <= 8 ? 2 : 1)" in src
+    assert _k3_const("kMaxWarps") == nuts_traj.K3_MAX_WARPS
+    assert _k3_const("kBlockThreads") == nuts_traj.K3_BLOCK_THREADS
+    assert _k3_const("kBlockSlots") == nuts_traj.K3_BLOCK_SLOTS
+    assert _k3_const("kMaxDepth") == nuts_traj.K3_MAX_DEPTH
+    assert re.search(r"\bkCk = (\d+);", src).group(1) == str(nuts_traj.K3_ROWS)
+    assert _k3_const("kSmemLimit") == nuts_traj.K3_SMEM_LIMIT == 232448
+    assert nuts_traj.K3_WARP_MAX_N == 256
+    assert [nuts_traj.k3_blocks_per_sm(np_, M) for np_, M in
+            ((1, 4), (2, 4), (3, 2), (4, 2), (5, 2), (8, 1), (3, 4))] == [
+        2, 2, 2, 2, 1, 2, 1]
+
+
+@pytest.mark.parametrize("max_depth", range(21))
+def test_k3_launch_fits_every_n_and_depth(max_depth):
+    """For n in 1..4,096 (every n to 300, then a stride) at max_depth
+    0..20: the geometry fits 232,448 bytes and is the kernel's own
+    reckoning; the warp layout runs exactly up to n = 256 (every depth
+    fits there), 4 slots up to NP = 2, else 2, halved only where fewer
+    than 4 warps would fit one block an SM; at most 12 warps, and as many
+    as the blocks an SM leave room for; past 256 the block layout with the
+    deepest k-tile (≤ 32 rows) whose two stages fit; grids are one wave
+    and never larger than the chains need."""
+    S = max_depth - 1 if max_depth > 2 else 1
+    R = 5 + 2 * S
+    wb = lambda n, M: -(-(16 * M + 4 * n * M + 4 * M * R * n) // 16) * 16  # noqa: E731
+    bb = lambda n, kt: (2208 + 32 * n + 8 * ((kt * n + 7) // 4 * 4))  # noqa: E731
+    for n in list(range(1, 301)) + list(range(301, 4097, 53)) + [4096]:
+        for C in (1, 301, 65536):
+            geo = nuts_traj.k3_launch(n, max_depth, C)
+            assert geo.smem <= 232448
+            if n <= 256:
+                np_ = -(-n // 32)
+                assert geo.layout == "warp" and geo.k_tile == 0
+                top = 4 if np_ <= 2 else 2
+                assert geo.slots in (1, 2, 4) and geo.slots <= top
+                assert 1 <= geo.warps <= 12
+                assert geo.smem == geo.warps * wb(n, geo.slots)
+                assert geo.warps >= 4 or geo.slots == 1
+                # two blocks an SM where the registers allow and 4 warps
+                # fit half the SM's shared memory, else one; then the most
+                # warps that fit
+                two = min(12, (233472 // 2 - 1024) // wb(n, geo.slots))
+                b = (2 if nuts_traj.k3_blocks_per_sm(np_, geo.slots) == 2
+                     and two >= 4 else 1)
+                assert geo.warps == (two if b == 2 else min(
+                    12, 232448 // wb(n, geo.slots)))
+                if geo.slots < top:  # twice the slots leave < 4 warps
+                    assert 4 * wb(n, 2 * geo.slots) > 232448
+                per = geo.warps * geo.slots
+                assert 1 <= geo.grid and (geo.grid - 1) * per < C
+                assert geo.grid == min(-(-C // per), 132 * b)
+            else:
+                assert geo.layout == "block" and geo.slots == 8
+                assert geo.warps == 16
+                assert geo.smem == bb(n, geo.k_tile)
+                assert geo.k_tile == 32 or bb(n, geo.k_tile + 1) > 232448
+                assert geo.grid == min(-(-C // 8), 132)
+
+
+def test_k3_launch_at_the_bench_shapes():
+    """The 10×10 grid (n = 82, max_depth 4) at 65,536 chains: 2 slots, 12
+    warps, two blocks an SM; at max_depth 20 the rows leave 4 warps. The
+    64×64 grid (n = 3,246) at 1,024 chains: 128 blocks of 8 chains, J in
+    4-row stages."""
+    assert nuts_traj.k3_launch(82, 4, 65536) == nuts_traj.K3Launch(
+        "warp", 2, 12, 94848, 264, 0)
+    assert nuts_traj.k3_launch(82, 20, 65536)[:3] == ("warp", 2, 4)
+    assert nuts_traj.k3_launch(3246, 4, 1024) == nuts_traj.K3Launch(
+        "block", 8, 16, 2208 + 32 * 3246 + 8 * 12988, 128, 4)
+    assert nuts_traj.k3_launch(82, 4, 65536, sms=100).grid == 200
+    for bad in ((0, 4, 5), (4097, 4, 5), (82, 21, 5), (82, -1, 5),
+                (82, 4, 0)):
+        with pytest.raises(ValueError):
+            nuts_traj.k3_launch(*bad)

@@ -9,7 +9,9 @@ Run from the root of a checkout, with no arguments::
 profiles the ``grid10x10`` HMC, ``nuts10x10``, ``grid128x128`` HMC and
 ``smc_denoise11`` fused cells with ``torch.profiler``: device idle share,
 kernels per unit, the largest kernels' shares; then K1, K2, K3 and K5
-alone at zero and at the main path's steps. PERF.md §5 reads it.)
+alone at zero and at the main path's steps, and K4 at N = 1, 4,096,
+16,384 and 65,536 (wrapper, launcher, the kernel's device time). PERF.md
+§5 and §6 read it.)
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -29,11 +31,14 @@ Phases (any failure raises and the script exits non-zero):
    65,536 chains, max_depth 4), at max_depth 8 and at n = 3,246 (each
    also timed on the main path's route, in-kernel Philox), then its
    in-kernel uniforms; K4 (SMC weight pipeline) against its plain version
-   at N ∈ {7, 1000, 65,536}; K5 (fused non-quadratic leapfrog) against
-   both plain versions (autograd, and the tape twin) on ``robot_map(100)``
-   (16,384 chains, 8 steps, untempered and at β = 0.3 against the SMC
-   base), the 11×11 and 16×16 denoising grids (4,096 chains, 5 steps),
-   ``robot_map(100)`` at 4,099 chains and a 127-node tape;
+   in f64 at N ∈ {7, 1,000, 4,096, 16,384, 65,536, 262,145, 4,194,307}
+   (both layouts; two launches bitwise equal), timed at N ∈ {1, 4,096,
+   16,384, 65,536} through the wrapper and the launcher alone; K5 (fused
+   non-quadratic leapfrog) against both plain versions (autograd, and the
+   tape twin) on ``robot_map(100)`` (16,384 chains, 8 steps, untempered
+   and at β = 0.3 against the SMC base), the 11×11 and 16×16 denoising
+   grids (4,096 chains, 5 steps), ``robot_map(100)`` at 4,099 chains and
+   a 127-node tape;
    K6 (banded leapfrog from given momenta) through ``dia_quad_leapfrog``
    on the 128×128 grid's latent rows (1,024 chains, 1 and 8 steps) and on
    K2's edge shapes against its plain version in f32 and f64;
@@ -58,8 +63,9 @@ Phases (any failure raises and the script exits non-zero):
 
 The last three lines are the kernels' JSON record (each kernel's error,
 times, launches on its path and its bound on this card from this run's
-shapes; every kernel but K4 also its launch geometry; K1 and K3 their
-times at n = 3,246, K3 its Philox route's), the card's name and
+shapes; every kernel also its launch geometry; K1 and K3 their
+times at n = 3,246, K3 its Philox route's, K4 its times at the SMC
+sizes), the card's name and
 power limit, and ``{"ok": true, "device":
 {...}}``. The script imports nothing of JAX.
 """
@@ -712,46 +718,148 @@ def phase_k3(dev, cases=((10, 65536, 4), (10, 8192, 8), (64, 1024, 4))):
     return record
 
 
-def phase_k4(dev, sizes=(7, 1000, 65536), scales=(3.0, 30.0)):
+def time_batch_ms(fn, reps: int = 50, rounds: int = 5) -> float:
+    """Device time of one ``fn()`` when ``reps`` calls run back to back:
+    CUDA events around the batch, over the count, median of ``rounds``
+    batches after a warm call. Where a call's host time exceeds its device
+    time this is the host's launch rate."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def k4_lw(dev, N, scale=3.0):
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(N)
+    return scale * torch.randn((N,), generator=gen, device=dev)
+
+
+def k4_device_ms(lw, out, geo, reps=20):
+    """K4's own device time at ``geo`` on given outputs: the median of
+    ``reps`` launches under ``torch.profiler`` (None where it records
+    none), which leaves out the host's share of a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lhvi_tpu_torch.ops import resample as rs
+
+    rs._k4(lw, *out, geo)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            rs._k4(lw, *out, geo)
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "_kernel" in e.name]
+    return statistics.median(us) / 1e3 if us else None
+
+
+def k4_times(dev, N, device=False):
+    """K4 at N weights (the cluster layout): (the wrapper, a CUDA-event
+    median of single calls as every kernel's ``ms``; the launcher alone on
+    preallocated outputs, ``time_batch_ms``; with ``device``, the kernel's
+    device time, ``k4_device_ms``, else None; the geometry). The main run
+    keeps the profiler out, so that no path timed after it shares a process
+    with a profiler session."""
     import torch
 
     from lhvi_tpu_torch.ops import resample as rs
 
-    log("[K4] tolerances (tests/test_resample_kernel.py:26-32): cum 1e-4 "
-        "absolute; lwn and step_z 1e-5*max(1,|plain|) (at scale 30 |lwn| "
-        "reaches ~250, where one f32 ulp is 1.5e-5, so 1e-5 can hold only "
-        "relatively); ess 1e-5 relative; |cum[-1] - 1| < 1e-4")
+    lw = k4_lw(dev, N)
+    geo = rs.k4_launch(N, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    out = (torch.empty_like(lw), torch.empty_like(lw),
+           torch.empty((2,), device=dev))
+    return (time_ms(lambda: rs.weight_pipeline(lw)),
+            time_batch_ms(lambda: rs._k4(lw, *out, geo)),
+            k4_device_ms(lw, out, geo) if device else None, geo)
+
+
+def phase_k4(dev, sizes=(7, 1000, 4096, 16384, 65536, 262145, 4194307),
+             timed=(1, 4096, 16384, 65536), scales=(3.0, 30.0)):
+    import torch
+
+    from lhvi_tpu_torch.ops import resample as rs
+
+    log("[K4] tolerances (tests/test_resample_kernel.py:26-32) against the "
+        "plain version in f64: cum 1e-4 absolute; lwn and step_z "
+        "1e-5*max(1,|plain|) (at scale 30 |lwn| reaches ~250, where one f32 "
+        "ulp is 1.5e-5, so 1e-5 can hold only relatively); ess 1e-5 "
+        "relative; |cum[-1] - 1| < 1e-4; two launches bitwise equal")
     record = None
     for N in sizes:
         for scale in scales:
-            gen = torch.Generator(dev).manual_seed(N)
-            lw = scale * torch.randn((N,), generator=gen, device=dev)
+            lw = k4_lw(dev, N, scale)
             lwn, cum, z, ess = rs.weight_pipeline(lw)
-            lwn_p, cum_p, z_p, ess_p = rs._torch_weight_pipeline(lw)
+            again = rs.weight_pipeline(lw)
+            lwn_p, cum_p, z_p, ess_p = rs._torch_weight_pipeline(lw.double())
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in
+                       zip((lwn, cum, z, ess), again))
             errs = (rel_err(lwn, lwn_p),
                     float((cum - cum_p).abs().max()),
                     abs(float(z - z_p)) / max(1.0, abs(float(z_p))),
                     abs(float(ess / ess_p) - 1.0), abs(float(cum[-1]) - 1.0))
             abs_err = max(float((lwn - lwn_p).abs().max()), errs[1],
                           abs(float(z - z_p)))
-            log(f"[K4] N={N} scale {scale}: lwn rel err {errs[0]:.3e} (abs "
-                f"{float((lwn - lwn_p).abs().max()):.3e}), cum err "
-                f"{errs[1]:.3e}, step_z rel err {errs[2]:.3e}, ess rel err "
-                f"{errs[3]:.3e}, |cum[-1]-1| {errs[4]:.3e}, ess "
-                f"{float(ess):.6g}")
+            geo = rs.k4_launch(N, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            log(f"[K4] N={N} scale {scale} ({geo.layout}: cluster "
+                f"{geo.cluster}, threads {geo.threads}, per_thread "
+                f"{geo.per_thread}, grid {geo.grid}): lwn rel err "
+                f"{errs[0]:.3e} (abs {float((lwn - lwn_p).abs().max()):.3e}), "
+                f"cum err {errs[1]:.3e}, step_z rel err {errs[2]:.3e}, ess "
+                f"rel err {errs[3]:.3e}, |cum[-1]-1| {errs[4]:.3e}, ess "
+                f"{float(ess):.6g}; bitwise equal twice: {same}")
             if (errs[0] > 1e-5 or errs[1] > 1e-4 or errs[2] > 1e-5
-                    or errs[3] > 1e-5 or errs[4] > 1e-4):
+                    or errs[3] > 1e-5 or errs[4] > 1e-4 or not same):
                 raise AssertionError(f"K4 disagrees with its plain version "
                                      f"at N={N}")
             if N == 65536 and scale == scales[0]:
+                # the parent-comparable line: the wrapper, single calls
                 ms = time_ms(lambda: rs.weight_pipeline(lw))
                 plain_ms = time_ms(lambda: rs._torch_weight_pipeline(lw))
                 log(f"[K4] N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
                 # about 8 operations per weight: max, exp, sums, scan
                 record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                              **bound(nbytes(lw, lwn, cum, z, ess), 8 * N))
+                              **bound(nbytes(lw, lwn, cum, z, ess), 8 * N),
+                              geometry=dict(layout=geo.layout,
+                                            cluster=geo.cluster,
+                                            threads=geo.threads,
+                                            per_thread=geo.per_thread,
+                                            grid=geo.grid))
+    for N in timed:
+        k4_timed_line(dev, N, record)
     return record
+
+
+def k4_timed_line(dev, N, record=None, device=False):
+    """Log K4's times at N beside its bound (bytes as ``nbytes(lw, lwn,
+    cum, z, ess)``); keep them in ``record``."""
+    wrapper, alone, device, geo = k4_times(dev, N, device)
+    b = bound(12 * N + 8, 8 * N)["bound_ms"]
+    log(f"[K4] N={N} ({geo.layout}, cluster {geo.cluster}, threads "
+        f"{geo.threads}, per_thread {geo.per_thread}): wrapper {wrapper:.4f} "
+        f"ms, launcher alone {alone:.4f} ms, "
+        + (f"kernel device time {device:.4f} ms, " if device is not None
+           else "") + f"bound {b:.6f} ms")
+    if record is not None:
+        record[f"ms_n{N}"], record[f"launcher_ms_n{N}"] = wrapper, alone
+    return geo
 
 
 def robot_fg(dev, n_segments=100):
@@ -926,6 +1034,7 @@ def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
     from lhvi_tpu_torch.models.relational import robot_map, robot_scan_evidence
     from lhvi_tpu_torch.models.toy import hybrid_chain
     from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
+    from lhvi_tpu_torch.ops.resample import weight_pipeline
     from lhvi_tpu_torch.relational.data import load_evidence
     from lhvi_tpu_torch.utils.oracle import ExactPosterior
 
@@ -1026,6 +1135,7 @@ def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
     lz = {}
     for fused in (True, False):
         before = logpot_leapfrog.launches
+        before_k4 = weight_pipeline.launches
         cfg = smc.SMCConfig(n_particles=N_smc, n_temps=400, adaptive=True,
                             fused_logpot=fused)
         t0 = time.perf_counter()
@@ -1035,10 +1145,11 @@ def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
         lz[fused] = [r.log_z for r in runs]
         temps = [int(r.diag["n_temps_used"]) for r in runs]
         k5 = logpot_leapfrog.launches - before
+        k4 = weight_pipeline.launches - before_k4
         log(f"[robot] smc denoise 11x11 (adaptive), {N_smc} particles, "
             f"fused_logpot={fused}: log Z {[round(v, 4) for v in lz[fused]]}, "
             f"temperatures {temps}, {N_smc * sum(temps) / dt:.6g} particle-"
-            f"temperature-steps/s, K5 launches {k5}")
+            f"temperature-steps/s, K5 launches {k5}, K4 launches {k4}")
         if (k5 > 0) != fused:
             raise AssertionError(f"smc fused_logpot={fused}: {k5} K5 launches")
     mf, mu = np.mean(lz[True]), np.mean(lz[False])
@@ -1079,6 +1190,7 @@ def phase_hybrid(dev, smi, robot_hmc, C=16384, S=20, C_small=4096,
     from lhvi_tpu_torch.engines import nuts, smc
     from lhvi_tpu_torch.models.relational import robot_map, robot_scan_evidence
     from lhvi_tpu_torch.models.toy import hybrid_chain
+    from lhvi_tpu_torch.ops.resample import weight_pipeline
     from lhvi_tpu_torch.relational.data import load_evidence
     from lhvi_tpu_torch.utils.oracle import ExactPosterior
 
@@ -1169,15 +1281,17 @@ def phase_hybrid(dev, smi, robot_hmc, C=16384, S=20, C_small=4096,
     exact = exact_h
     assert fgh.color_plan is not None  # the planned tempered sweep
     t0 = time.perf_counter()
+    before = weight_pipeline.launches
     res = smc.sample(fgh, torch.Generator(dev).manual_seed(5),
                      smc.SMCConfig(n_particles=N_smc, n_temps=40, n_moves=2))
+    k4 = weight_pipeline.launches - before
     errs = (abs(res.mean(x1) - exact.mean(x1)),
             float(np.abs(res.disc_marginal(d) - exact.disc_marginal(d)).max()),
             abs(res.log_z - exact.log_z))
     log(f"[hybrid] smc hybrid_chain, {N_smc} particles, 40 temperatures: "
         f"E[x1] err {errs[0]:.4f} (< 0.1), P(d) err {errs[1]:.4f} (< 0.06), "
         f"log Z {res.log_z:.4f} (exact {exact.log_z:.4f}, err "
-        f"{errs[2]:.4f}); {time.perf_counter() - t0:.1f} s")
+        f"{errs[2]:.4f}); K4 launches {k4}; {time.perf_counter() - t0:.1f} s")
     if not (errs[0] < 0.1 and errs[1] < 0.06):
         raise AssertionError("SMC on hybrid_chain off the exact posterior")
 
@@ -1264,6 +1378,7 @@ def phase_smc(dev, smi, N=65536):
     from lhvi_tpu_torch.engines import smc
     from lhvi_tpu_torch.models.lds import kalman_lds
     from lhvi_tpu_torch.models.toy import gaussian_grid
+    from lhvi_tpu_torch.ops.resample import weight_pipeline
 
     g, xs, _ = kalman_lds(T=20, seed=0)
     fg = compile_graph(g, dev)
@@ -1272,9 +1387,11 @@ def phase_smc(dev, smi, N=65536):
     for adaptive in (False, True):
         cfg = smc.SMCConfig(n_particles=N, n_temps=50, n_moves=2,
                             adaptive=adaptive)
+        before = weight_pipeline.launches
         t0 = time.perf_counter()
         res = smc.sample(fg, torch.Generator(dev).manual_seed(0), cfg)
         dt = time.perf_counter() - t0
+        k4 = weight_pipeline.launches - before
         errs = np.array([abs(res.mean(rv) - mean[i]) for rv, i in
                          zip(xs, idx)])
         vrel = np.array([abs(res.var(rv) - var[i]) / var[i] for rv, i in
@@ -1283,7 +1400,8 @@ def phase_smc(dev, smi, N=65536):
         name = "adaptive" if adaptive else "fixed"
         log(f"[smc] kalman_lds(T=20) {name} schedule, {N} particles: log Z "
             f"{res.log_z:.5f} (exact {log_z:.5f}, err {lz_err:.4f}), "
-            f"temperatures {int(res.diag['n_temps_used'])}, mean accept "
+            f"temperatures {int(res.diag['n_temps_used'])} (K4 launches "
+            f"{k4}), mean accept "
             f"{float(res.diag['accept'].mean()):.4f}, mean err mean "
             f"{errs.mean():.4f} max {errs.max():.4f}, var rel err mean "
             f"{vrel.mean():.4f}; {dt:.2f} s")
@@ -1301,10 +1419,13 @@ def phase_smc(dev, smi, N=65536):
         out = smc.run_smc(fg, torch.Generator(dev).manual_seed(seed), cfg)
         lz.append(float(out[3]))
 
+    before = weight_pipeline.launches
     dt, spread = timed_runs(run)
+    k4 = (weight_pipeline.launches - before) / (4 * cfg.n_temps)
     rate = N * cfg.n_temps / dt
     log(f"[smc] throughput (10x10 grid): {rate:.6g} particle-temperature-"
-        f"steps/s (rep spread {spread:.3f}) on {smi}; log Z "
+        f"steps/s (rep spread {spread:.3f}; K4 launches a temperature "
+        f"{k4:.4g}) on {smi}; log Z "
         f"{lz[-1]:.4f} against the closed form {log_z:.4f} (err "
         f"{abs(lz[-1] - log_z):.4f})")
     return rate
@@ -1558,6 +1679,33 @@ def step_costs(dev, smi):
             for s in (0, 1, steps)]
         log(f"[profile] K5 alone, {name}, C={C}: 0 / 1 / {steps} steps "
             f"{ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f} ms; on {smi}")
+    k4_profile(dev, smi)
+
+
+def k4_profile(dev, smi, sizes=(1, 4096, 16384, 65536)):
+    """K4 at the SMC sizes as ``phase_k4`` times it, then the other cluster
+    geometries that cover N, by the kernel's device time."""
+    import torch
+
+    from lhvi_tpu_torch.ops import resample as rs
+
+    log(f"[profile] K4 on {smi}")
+    for N in sizes:
+        k4_timed_line(dev, N, device=True)
+        lw = k4_lw(dev, N)
+        out = (torch.empty_like(lw), torch.empty_like(lw),
+               torch.empty((2,), device=dev))
+        sweep = []
+        for S in (1, 2, 4, 8, 16):
+            for T in rs.K4_BLOCK_THREADS:
+                for E in rs.K4_PER_THREAD:
+                    if N <= S * T * E < 4 * N:
+                        g = rs.K4Launch("cluster", S, T, E, S, 0)
+                        sweep.append((k4_device_ms(lw, out, g) or 0.0, g))
+        if sweep:
+            log(f"[profile] K4 N={N} geometries by device time: " + ", ".join(
+                f"{g.cluster}x{g.threads}x{g.per_thread} {t:.4f}"
+                for t, g in sorted(sweep, key=lambda x: x[0])[:6]))
 
 
 def main() -> int:

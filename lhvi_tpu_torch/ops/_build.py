@@ -56,8 +56,9 @@ _SIGNATURES = {
                       + (_P,),
     # grid, n, max_depth -> floats of global scratch the block layout needs
     "lhvi_nuts_traj_scratch": (_I, _I, _I),
-    # log_w, lw_norm, cum, stats (step_z, ess), N, stream
-    "lhvi_weight_pipeline": (_P, _P, _P, _P, _I, _P),
+    # log_w, lw_norm, cum, stats (step_z, ess), N, layout, cluster,
+    # threads, per_thread, grid, scratch (or null), stream
+    "lhvi_weight_pipeline": (_P,) * 4 + (_I,) * 6 + (_P, _P),
     # x, p, inv_mass, eps, beta, J, h, mid, is2 (null when absent),
     # tape (int4 nodes), bucket_tape, row_order, segs, color_ptr, cidx,
     # cconst, prm, w, disc values (or null), x_out, p_out, e0, e1,

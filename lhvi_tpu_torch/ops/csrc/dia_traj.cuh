@@ -456,9 +456,10 @@ inline int check_launch(int C, int n, int n_emb, int K, const int* offsets,
 
 // How many clusters of a kernel fit on the card at once. The kernel's
 // dynamic shared-memory limit is raised to the largest size asked of it
-// so far (a smaller launch runs under a larger limit), and the runtime's
+// so far (a smaller launch runs under a larger limit), a cluster past the
+// portable size of 8 is allowed before the query, and the runtime's
 // answer is remembered per kernel, device, cluster size, block size and
-// shared bytes: both calls cost more than the launch.
+// shared bytes: these calls cost more than the launch.
 template <typename Kernel>
 inline cudaError_t clusters_that_fit(Kernel kernel, cudaLaunchConfig_t* cfg,
                                      int* fit) {
@@ -475,7 +476,7 @@ inline cudaError_t clusters_that_fit(Kernel kernel, cudaLaunchConfig_t* cfg,
   };
   static std::mutex mu;
   static Limit limits[16];
-  static Entry seen[64];
+  static Entry seen[128];
   static int n_limits = 0, n_seen = 0;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -503,9 +504,14 @@ inline cudaError_t clusters_that_fit(Kernel kernel, cudaLaunchConfig_t* cfg,
       return cudaSuccess;
     }
   }
+  if (cluster > kMaxCluster) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   err = cudaOccupancyMaxActiveClusters(fit, kernel, cfg);
   if (err != cudaSuccess) return err;
-  if (n_seen < 64)
+  if (n_seen < 128)
     seen[n_seen++] = Entry{fn, device, cluster, threads, smem, *fit};
   return cudaSuccess;
 }

@@ -6,16 +6,21 @@ big state arrays: log-weight max, exp, normalization, ESS and the
 cumulative sum the resampler searches. ``weight_pipeline`` runs them all
 in ONE launch of kernel K4 (``csrc/weights.cu``) on CUDA tensors, and the
 plain version ``_torch_weight_pipeline`` on CPU tensors; there is no other
-route. ``searchsorted`` and the parent gather stay outside the kernel, as
-in the reference.
+route. Up to 262,144 weights one thread-block cluster holds the vector in
+registers and reads it once; past that one cooperative grid does.
+:func:`k4_launch` chooses the geometry. ``searchsorted`` and the parent
+gather stay outside the kernel, as in the reference.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from lhvi_tpu_torch.ops import _build
-from lhvi_tpu_torch.ops.leapfrog import _check_f32
+from lhvi_tpu_torch.ops.leapfrog import _check_f32, _round_up
 
 
 def _torch_weight_pipeline(log_w):
@@ -30,20 +35,104 @@ def _torch_weight_pipeline(log_w):
     return lwn, torch.cumsum(wn, dim=0), step_z, ess
 
 
-def _cuda_weight_pipeline(log_w):
+K4_MAX_CLUSTER = 16                  # blocks (past 8: non-portable)
+K4_BLOCK_THREADS = (256, 512, 1024)  # threads of a cluster block
+K4_PER_THREAD = (4, 8, 16)           # weights a thread holds in registers
+K4_CLUSTER_MAX_N = K4_MAX_CLUSTER * K4_BLOCK_THREADS[-1] * K4_PER_THREAD[-1]
+K4_GRID_THREADS = 512                # grid layout: threads of a block
+K4_GRID_PER_THREAD = 4               # grid layout: weights a thread a chunk
+K4_GRID_BLOCKS_PER_SM = 2            # __launch_bounds__(512, 2)
+
+
+class K4Launch(NamedTuple):
+    """K4's launch geometry (``csrc/weights.cu``).
+
+    ``layout`` "cluster": one cluster of ``cluster`` blocks (``grid`` ==
+    ``cluster``) of ``threads`` threads, thread t of block b holding the
+    ``per_thread`` weights from (b·threads + t)·per_thread. "grid": one
+    cooperative grid of ``grid`` blocks of ``threads`` threads, block b
+    owning the weights from b·R (R = ceil(n / grid) rounded up to 4, so
+    every range starts 16-byte aligned), ``per_thread`` weights a thread a
+    chunk, and ``scratch`` floats of zeroed global scratch (a block's (max,
+    Σw, Σw²) in doubles, then the barrier word)."""
+
+    layout: str
+    cluster: int
+    threads: int
+    per_thread: int
+    grid: int
+    scratch: int
+
+
+def k4_launch(n: int, sms: int = 132) -> K4Launch:
+    """The geometry K4 runs at for ``n`` weights on a card of ``sms`` SMs.
+    Up to 262,144 weights, the cluster layout: the fewest weights a thread
+    (4, 8, 16), then the fewest threads a block (256, 512, 1,024), that
+    let 16 blocks hold n, and as many blocks as n needs; where one block
+    holds n, the next power of two ≥ n/4 threads (at least a warp). Many
+    small blocks beat a few large ones (``chip_smoke.py --profile``'s
+    sweep): each SM loads, exponentiates and scans a smaller share. Past
+    it: the grid layout, two 512-thread blocks an SM (all resident)."""
+    if n < 1:
+        raise ValueError(f"n={n}: K4 needs at least one weight")
+    if n <= K4_CLUSTER_MAX_N:
+        E = next(e for e in K4_PER_THREAD
+                 if n <= K4_MAX_CLUSTER * K4_BLOCK_THREADS[-1] * e)
+        T = next(t for t in K4_BLOCK_THREADS if n <= K4_MAX_CLUSTER * t * E)
+        if n <= T * E:
+            q = -(-n // E)
+            return K4Launch("cluster", 1, max(32, 1 << (q - 1).bit_length()),
+                            E, 1, 0)
+        S = -(-n // (T * E))
+        return K4Launch("cluster", S, T, E, S, 0)
+    G = sms * K4_GRID_BLOCKS_PER_SM
+    return K4Launch("grid", 1, K4_GRID_THREADS, K4_GRID_PER_THREAD, G,
+                    6 * G + 2)
+
+
+_k4_geometry = functools.lru_cache(maxsize=256)(k4_launch)
+
+
+def _k4_ptrs(log_w, lwn_ptr: int, cum_ptr: int, stats_ptr: int,
+             geo: K4Launch, scratch=None):
+    # the raw stream handle: torch.cuda.current_stream() builds a Stream
+    # object, several microseconds of a call that lasts a few more
+    code = _build.lib().lhvi_weight_pipeline(
+        log_w.data_ptr(), lwn_ptr, cum_ptr, stats_ptr, log_w.shape[0],
+        0 if geo.layout == "cluster" else 1, geo.cluster, geo.threads,
+        geo.per_thread, geo.grid,
+        None if scratch is None else scratch.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(log_w.device.index))
+    _build.check(code, "weight_pipeline")
+
+
+def _k4(log_w, lwn, cum, stats, geo: K4Launch, scratch=None):
+    """One launch of K4 at ``geo`` into the given outputs (the launcher
+    alone: no allocation, no count); raises if the launcher refuses."""
+    _k4_ptrs(log_w, lwn.data_ptr(), cum.data_ptr(), stats.data_ptr(), geo,
+             scratch)
+
+
+def _cuda_weight_pipeline(log_w, geo: K4Launch | None = None):
+    # K4 runs once a temperature in a host-bound loop, so the wrapper keeps
+    # its own host time small: one output buffer [lwn | cum | stats] (cum
+    # starts 16-byte aligned), its pointers by arithmetic, the geometry
+    # cached per N
     (n,) = log_w.shape
     dev = log_w.device
     _check_f32("log_w", log_w, dev, (n,))
-    lwn = torch.empty_like(log_w)
-    cum = torch.empty_like(log_w)
-    stats = torch.empty((2,), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = _build.lib().lhvi_weight_pipeline(
-        log_w.data_ptr(), lwn.data_ptr(), cum.data_ptr(), stats.data_ptr(),
-        n, stream)
-    _build.check(code, "weight_pipeline")
+    if geo is None:
+        geo = _k4_geometry(n, _build.sm_count(dev))
+    n4 = _round_up(n, 4)
+    out = torch.empty((2 * n4 + 2,), dtype=torch.float32, device=dev)
+    scratch = (torch.zeros((geo.scratch,), dtype=torch.float32, device=dev)
+               if geo.scratch else None)
+    p = out.data_ptr()
+    _k4_ptrs(log_w, p, p + 4 * n4, p + 8 * n4, geo, scratch)
     weight_pipeline.launches += 1
-    return lwn, cum, stats[0], stats[1]
+    lwn, _, cum, _, stats = out.split_with_sizes([n, n4 - n, n, n4 - n, 2])
+    step_z, ess = stats.unbind()
+    return lwn, cum, step_z, ess
 
 
 def weight_pipeline(log_w):

@@ -450,28 +450,116 @@ def test_nuts_traj_kernel_in_kernel_uniforms(dev):
 # ---- K4: the SMC weight pipeline --------------------------------------------
 
 
-@pytest.mark.parametrize("N", [1, 7, 1000, 65536, 100003])
-@pytest.mark.parametrize("scale", [3.0, 30.0])
-def test_weight_pipeline_kernel_matches_plain(dev, N, scale):
+def _check_weights(got, lw):
     """tests/test_resample_kernel.py:26-32 tolerances against the plain
     version in f64, relative where f32 cannot hold them absolutely: lwn and
     step_z within 1e-5·max(1,|value|) (at scale 30 |lwn| reaches ~260,
-    where one f32 ulp is 3e-5)."""
+    where one f32 ulp is 3e-5). lwn must be -inf exactly where lw is."""
     from lhvi_tpu_torch.ops import resample as rs
 
-    g = torch.Generator(dev).manual_seed(N)
-    lw = scale * torch.randn((N,), generator=g, device=dev)
-    before = rs.weight_pipeline.launches
-    lwn, cum, z, ess = rs.weight_pipeline(lw)
-    torch.cuda.synchronize()
-    assert rs.weight_pipeline.launches == before + 1
+    lwn, cum, z, ess = got
     lwn_p, cum_p, z_p, ess_p = rs._torch_weight_pipeline(lw.double())
-    assert _rel(lwn, lwn_p) < 1e-5
+    fin = torch.isfinite(lw)
+    assert torch.equal(torch.isfinite(lwn), fin)
+    assert bool((lwn[~fin] == -float("inf")).all())
+    assert _rel(lwn[fin], lwn_p[fin]) < 1e-5
     assert float((cum - cum_p).abs().max()) < 1e-4
     assert abs(float(z) - float(z_p)) < 1e-5 * max(1.0, abs(float(z_p)))
     assert abs(float(ess) / float(ess_p) - 1) < 1e-5
     assert abs(float(cum[-1]) - 1) < 1e-4
     assert z.shape == () and z.device == lw.device
+
+
+# K4's layout boundaries (ops/resample.py::k4_launch): one block up to
+# 1,024; a cluster of 256-, 512- and 1,024-thread blocks up to 16,384,
+# 32,768 and 65,536, then 8 and 16 weights a thread up to 131,072 and
+# 262,144; the cooperative grid past it
+_K4_BOUNDS = [b + d for b in (1024, 16384, 32768, 65536, 131072, 262144)
+              for d in (-1, 1)]
+
+
+@pytest.mark.parametrize("N", [1, 7, 1000, 65536, 100003, 4096, 16384]
+                         + _K4_BOUNDS + [4194307])
+@pytest.mark.parametrize("scale", [3.0, 30.0])
+def test_weight_pipeline_kernel_matches_plain(dev, N, scale):
+    """Both layouts, each boundary ± 1, against the plain version in f64
+    (``_check_weights``)."""
+    from lhvi_tpu_torch.ops import resample as rs
+
+    g = torch.Generator(dev).manual_seed(N)
+    lw = scale * torch.randn((N,), generator=g, device=dev)
+    before = rs.weight_pipeline.launches
+    got = rs.weight_pipeline(lw)
+    torch.cuda.synchronize()
+    assert rs.weight_pipeline.launches == before + 1
+    _check_weights(got, lw)
+
+
+@pytest.mark.parametrize("N,layout", [(1000, "cluster"), (65536, "cluster"),
+                                      (100003, "cluster"), (5000, "grid"),
+                                      (4194307, "grid")])
+def test_weight_pipeline_kernel_is_bitwise_reproducible(dev, N, layout):
+    """Two launches on the same input give the same bits in each layout
+    (every sum's order depends only on N and the geometry); the grid
+    layout at a small N, forced, also holds to the plain version."""
+    from lhvi_tpu_torch.ops import resample as rs
+
+    g = torch.Generator(dev).manual_seed(N + 1)
+    lw = 5.0 * torch.randn((N,), generator=g, device=dev)
+    geo = rs.k4_launch(N, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    if geo.layout != layout:
+        G = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+        geo = rs.K4Launch("grid", 1, rs.K4_GRID_THREADS,
+                          rs.K4_GRID_PER_THREAD, G, 6 * G + 2)
+    a = rs._cuda_weight_pipeline(lw, geo)
+    b = rs._cuda_weight_pipeline(lw, geo)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _check_weights(a, lw)
+
+
+@pytest.mark.parametrize("N", [1000, 65536, 262145])
+def test_weight_pipeline_kernel_zero_weights(dev, N):
+    """Log-weights at -inf (particles with zero weight), scattered and in
+    a run longer than a block: lwn is -inf there, cum is flat across them
+    (to one f32 ulp at 1: a thread's or block's offset comes from a scan
+    tree, not from its neighbour's last sum), and the rest matches the
+    plain version."""
+    from lhvi_tpu_torch.ops import resample as rs
+
+    g = torch.Generator(dev).manual_seed(N + 2)
+    lw = 3.0 * torch.randn((N,), generator=g, device=dev)
+    lw[::7] = -float("inf")
+    lw[N // 4: N // 4 + 5000] = -float("inf")
+    got = rs.weight_pipeline(lw)
+    torch.cuda.synchronize()
+    _check_weights(got, lw)
+    cum = got[1]
+    dead = torch.nonzero(~torch.isfinite(lw[1:])).flatten() + 1
+    assert float((cum[dead] - cum[dead - 1]).abs().max()) <= 2.0**-24
+
+
+def test_weight_pipeline_kernel_rejects_bad_geometry(dev):
+    """The launcher refuses a geometry that does not cover N or that the
+    card cannot place, and the refusal raises through ``_build.check``."""
+    from lhvi_tpu_torch.ops import resample as rs
+
+    N = 10000
+    lw = torch.randn((N,), device=dev)
+    out = [torch.empty_like(lw), torch.empty_like(lw),
+           torch.empty((2,), device=dev)]
+    for geo in (rs.K4Launch("cluster", 2, 1024, 4, 2, 0),     # 8,192 < N
+                rs.K4Launch("cluster", 17, 1024, 4, 17, 0),   # > 16 blocks
+                rs.K4Launch("cluster", 3, 1024, 4, 1, 0),     # grid != cluster
+                rs.K4Launch("cluster", 3, 1024, 5, 3, 0),     # per_thread
+                rs.K4Launch("cluster", 3, 2048, 4, 3, 0),     # threads
+                rs.K4Launch("grid", 1, 512, 4, 100000, 1)):   # not resident
+        scratch = torch.zeros((max(geo.scratch, 1),), device=dev)
+        with pytest.raises(RuntimeError, match="weight_pipeline"):
+            rs._k4(lw, *out, geo, scratch)
+    with pytest.raises(RuntimeError, match="weight_pipeline"):
+        rs._k4(lw, *out, rs.K4Launch("grid", 1, 512, 4, 8, 50), None)
 
 
 def test_nuts_and_smc_steps_never_sync_with_the_host(dev):

@@ -32,10 +32,46 @@ def _check(got, want, n):
     assert 1.0 - 1e-4 <= float(ess) <= n * (1 + 1e-4)
 
 
+def _edge_weights(case):
+    """Log-weights that reach the pipeline's edges: entries at -inf (zero
+    weight), one dominant weight (ESS → 1), and N = 129 (one past a
+    128-lane row of the reference's tiling)."""
+    rng = np.random.default_rng(3)
+    if case == "neg_inf":
+        lw = rng.normal(scale=3.0, size=300).astype(np.float32)
+        lw[::7] = -np.inf
+        lw[100:160] = -np.inf
+    elif case == "dominant":
+        lw = rng.normal(size=500).astype(np.float32)
+        lw[123] = 60.0
+    else:
+        lw = rng.normal(scale=3.0, size=129).astype(np.float32)
+    return lw
+
+
 @pytest.mark.parametrize("n", [7, 128, 1000])
 @pytest.mark.parametrize("ref", ["jnp", "pallas_interpret"])
 def test_weight_pipeline_matches_reference(n, ref):
     lw = np.random.default_rng(0).normal(scale=3.0, size=n).astype(np.float32)
+    _reference_case(lw, ref)
+
+
+@pytest.mark.parametrize("case", ["neg_inf", "dominant", "n129"])
+@pytest.mark.parametrize("ref", ["jnp", "pallas_interpret"])
+def test_weight_pipeline_edges_match_reference(case, ref):
+    lw = _edge_weights(case)
+    got = _reference_case(lw, ref)
+    if case == "neg_inf":  # zero weights: lwn -inf, cum flat across them
+        dead = np.flatnonzero(~np.isfinite(lw[1:])) + 1
+        assert np.all(np.isneginf(got[0].numpy()[dead]))
+        np.testing.assert_array_equal(got[1].numpy()[dead],
+                                      got[1].numpy()[dead - 1])
+    if case == "dominant":
+        np.testing.assert_allclose(float(got[3]), 1.0, atol=1e-6)
+
+
+def _reference_case(lw, ref):
+    n = lw.shape[0]
     if ref == "jnp":
         want = ref_rs._jnp_weight_pipeline(jnp.asarray(lw), n)
     else:
@@ -46,6 +82,81 @@ def test_weight_pipeline_matches_reference(n, ref):
     assert rs.weight_pipeline.launches == before  # CPU: the plain version
     assert got[2].shape == () and got[3].shape == ()
     _check(got, want, n)
+    return got
+
+
+def _k4_ranges(geo, n):
+    """The [start, stop) of the weights each block owns, as
+    ``csrc/weights.cu`` cuts them: cluster blocks of threads·per_thread;
+    grid blocks of ceil(n / grid) rounded up to 4."""
+    if geo.layout == "cluster":
+        R = geo.threads * geo.per_thread
+    else:
+        R = (-(-n // geo.grid) + 3) // 4 * 4
+    return [(min(n, b * R), min(n, (b + 1) * R)) for b in range(geo.grid)]
+
+
+_K4_SMEM_BYTES = 968  # static shared memory of a block (csrc/weights.cu)
+
+# K4's layout boundaries: one block up to 1,024; a cluster of 256-, 512-
+# and 1,024-thread blocks up to 16,384, 32,768 and 65,536 (4 weights a
+# thread), then 8 and 16 weights a thread up to 131,072 and 262,144; the
+# grid past it
+_K4_BOUNDS = [b + d for b in (1024, 16384, 32768, 65536, 131072, 262144)
+              for d in (-1, 0, 1)]
+
+
+@pytest.mark.parametrize("n", sorted(set(
+    [1, 2, 31, 32, 33, 4095, 4096, 4097, 100003]
+    + _K4_BOUNDS + [2**26])))
+def test_k4_launch_geometry(n):
+    """K4's geometry covers N exactly once, fits the card (227 KB of shared
+    memory, 255 registers a thread, 65,536 an SM, clusters of at most 16
+    blocks of at most 1,024 threads) and takes the grid layout only past
+    the cluster's capacity."""
+    sms = 132
+    geo = rs.k4_launch(n, sms)
+    ranges = _k4_ranges(geo, n)
+    assert len(ranges) == geo.grid
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))  # disjoint
+    assert _K4_SMEM_BYTES <= 227 * 1024
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 1024
+    assert 2 * geo.per_thread <= 255  # a thread's weights and their exps
+    assert geo.per_thread % 4 == 0    # whole 16-byte loads
+    if geo.layout == "cluster":
+        assert n <= rs.K4_CLUSTER_MAX_N
+        assert 1 <= geo.cluster == geo.grid <= rs.K4_MAX_CLUSTER
+        assert geo.scratch == 0
+        # each thread's run of per_thread weights, once each, no empty block
+        per_block = geo.threads * geo.per_thread
+        assert geo.cluster * per_block >= n > (geo.cluster - 1) * per_block
+        assert all(b - a <= per_block for a, b in ranges)
+        assert geo.threads * 2 * geo.per_thread <= 65536
+        E = min(e for e in rs.K4_PER_THREAD
+                if n <= rs.K4_MAX_CLUSTER * rs.K4_BLOCK_THREADS[-1] * e)
+        assert geo.per_thread == E
+        if n <= 1024:  # one block, the fewest warps a power of two covers
+            assert geo.cluster == 1 and geo.threads < 2 * max(32, n / 4)
+        else:  # the fewest threads a block that let 16 blocks hold n
+            assert geo.threads == min(t for t in rs.K4_BLOCK_THREADS
+                                      if n <= rs.K4_MAX_CLUSTER * t * E)
+    else:
+        assert n > rs.K4_CLUSTER_MAX_N
+        assert geo.cluster == 1 and geo.per_thread == rs.K4_GRID_PER_THREAD
+        assert geo.grid == sms * rs.K4_GRID_BLOCKS_PER_SM
+        assert geo.scratch == 6 * geo.grid + 2  # 3 doubles a block + barrier
+        assert all(a % 4 == 0 for a, _ in ranges)  # 16-byte aligned starts
+    if n <= 300000:  # the element-by-element owner count
+        own = np.zeros(n, dtype=np.int64)
+        for a, b in ranges:
+            own[a:b] += 1
+        assert np.all(own == 1)
+
+
+def test_k4_launch_rejects_empty():
+    with pytest.raises(ValueError):
+        rs.k4_launch(0)
 
 
 def test_weight_pipeline_hand_math():

@@ -64,8 +64,8 @@ Phases (any failure raises and the script exits non-zero):
 The last three lines are the kernels' JSON record (each kernel's error,
 times, launches on its path and its bound on this card from this run's
 shapes; every kernel also its launch geometry; K1 and K3 their
-times at n = 3,246, K3 its Philox route's, K4 its times at the SMC
-sizes), the card's name and
+times at n = 3,246, K3 its Philox route's, K4 its wrapper's times at
+the SMC sizes), the card's name and
 power limit, and ``{"ok": true, "device":
 {...}}``. The script imports nothing of JAX.
 """
@@ -718,28 +718,6 @@ def phase_k3(dev, cases=((10, 65536, 4), (10, 8192, 8), (64, 1024, 4))):
     return record
 
 
-def time_batch_ms(fn, reps: int = 50, rounds: int = 5) -> float:
-    """Device time of one ``fn()`` when ``reps`` calls run back to back:
-    CUDA events around the batch, over the count, median of ``rounds``
-    batches after a warm call. Where a call's host time exceeds its device
-    time this is the host's launch rate."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
-
-
 def k4_lw(dev, N, scale=3.0):
     import torch
 
@@ -749,8 +727,8 @@ def k4_lw(dev, N, scale=3.0):
 
 def k4_device_ms(lw, out, geo, reps=20):
     """K4's own device time at ``geo`` on given outputs: the median of
-    ``reps`` launches under ``torch.profiler`` (None where it records
-    none), which leaves out the host's share of a call."""
+    ``reps`` launches under ``torch.profiler``, which leaves out the host's
+    share of a call. Raises where the profiler records no launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -765,16 +743,18 @@ def k4_device_ms(lw, out, geo, reps=20):
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and "_kernel" in e.name]
-    return statistics.median(us) / 1e3 if us else None
+    if not us:
+        raise AssertionError(f"the profiler recorded no K4 launch at {geo}")
+    return statistics.median(us) / 1e3
 
 
 def k4_times(dev, N, device=False):
-    """K4 at N weights (the cluster layout): (the wrapper, a CUDA-event
-    median of single calls as every kernel's ``ms``; the launcher alone on
-    preallocated outputs, ``time_batch_ms``; with ``device``, the kernel's
-    device time, ``k4_device_ms``, else None; the geometry). The main run
-    keeps the profiler out, so that no path timed after it shares a process
-    with a profiler session."""
+    """K4 at N weights: (the wrapper and the launcher alone on
+    preallocated outputs, each a CUDA-event median of single calls as every
+    kernel's ``ms``; with ``device``, the kernel's device time,
+    ``k4_device_ms``, else None; the geometry). The main run keeps the
+    profiler out, so that no path timed after it shares a process with a
+    profiler session."""
     import torch
 
     from lhvi_tpu_torch.ops import resample as rs
@@ -785,7 +765,7 @@ def k4_times(dev, N, device=False):
     out = (torch.empty_like(lw), torch.empty_like(lw),
            torch.empty((2,), device=dev))
     return (time_ms(lambda: rs.weight_pipeline(lw)),
-            time_batch_ms(lambda: rs._k4(lw, *out, geo)),
+            time_ms(lambda: rs._k4(lw, *out, geo)),
             k4_device_ms(lw, out, geo) if device else None, geo)
 
 
@@ -858,7 +838,7 @@ def k4_timed_line(dev, N, record=None, device=False):
         + (f"kernel device time {device:.4f} ms, " if device is not None
            else "") + f"bound {b:.6f} ms")
     if record is not None:
-        record[f"ms_n{N}"], record[f"launcher_ms_n{N}"] = wrapper, alone
+        record[f"ms_n{N}"] = wrapper
     return geo
 
 
@@ -1701,7 +1681,7 @@ def k4_profile(dev, smi, sizes=(1, 4096, 16384, 65536)):
                 for E in rs.K4_PER_THREAD:
                     if N <= S * T * E < 4 * N:
                         g = rs.K4Launch("cluster", S, T, E, S, 0)
-                        sweep.append((k4_device_ms(lw, out, g) or 0.0, g))
+                        sweep.append((k4_device_ms(lw, out, g), g))
         if sweep:
             log(f"[profile] K4 N={N} geometries by device time: " + ", ".join(
                 f"{g.cluster}x{g.threads}x{g.per_thread} {t:.4f}"

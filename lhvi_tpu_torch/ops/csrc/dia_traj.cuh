@@ -44,7 +44,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <mutex>
+#include "cluster_util.cuh"
 
 namespace lhvi_dia {
 
@@ -454,68 +454,6 @@ inline int check_launch(int C, int n, int n_emb, int K, const int* offsets,
   return (int)cudaSuccess;
 }
 
-// How many clusters of a kernel fit on the card at once. The kernel's
-// dynamic shared-memory limit is raised to the largest size asked of it
-// so far (a smaller launch runs under a larger limit), a cluster past the
-// portable size of 8 is allowed before the query, and the runtime's
-// answer is remembered per kernel, device, cluster size, block size and
-// shared bytes: these calls cost more than the launch.
-template <typename Kernel>
-inline cudaError_t clusters_that_fit(Kernel kernel, cudaLaunchConfig_t* cfg,
-                                     int* fit) {
-  struct Limit {
-    const void* fn;
-    int device;
-    size_t smem;
-  };
-  struct Entry {
-    const void* fn;
-    int device, cluster, threads;
-    size_t smem;
-    int fit;
-  };
-  static std::mutex mu;
-  static Limit limits[16];
-  static Entry seen[128];
-  static int n_limits = 0, n_seen = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const void* fn = (const void*)kernel;
-  const int cluster = (int)cfg->attrs[0].val.clusterDim.x;
-  const int threads = (int)cfg->blockDim.x;
-  const size_t smem = cfg->dynamicSmemBytes;
-  std::lock_guard<std::mutex> lock(mu);
-  Limit* lim = nullptr;
-  for (int e = 0; e < n_limits; ++e)
-    if (limits[e].fn == fn && limits[e].device == device) lim = &limits[e];
-  if (lim == nullptr || lim->smem < smem) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    if (lim != nullptr) lim->smem = smem;
-    else if (n_limits < 16) limits[n_limits++] = Limit{fn, device, smem};
-  }
-  for (int e = 0; e < n_seen; ++e) {
-    const Entry& s = seen[e];
-    if (s.fn == fn && s.device == device && s.cluster == cluster &&
-        s.threads == threads && s.smem == smem) {
-      *fit = s.fit;
-      return cudaSuccess;
-    }
-  }
-  if (cluster > kMaxCluster) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaOccupancyMaxActiveClusters(fit, kernel, cfg);
-  if (err != cudaSuccess) return err;
-  if (n_seen < 128)
-    seen[n_seen++] = Entry{fn, device, cluster, threads, smem, *fit};
-  return cudaSuccess;
-}
-
 // Launch `kernel` as persistent clusters of `cluster` blocks: as many as
 // fit on the card at once, at most one per chain group.
 template <typename Kernel>
@@ -535,7 +473,7 @@ inline int launch(Kernel kernel, const Args& a, int cluster, int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int fit = 0;
-  err = clusters_that_fit(kernel, &cfg, &fit);
+  err = lhvi_cluster::clusters_that_fit(kernel, &cfg, &fit);
   if (err != cudaSuccess) return (int)err;
   if (fit < 1) return (int)cudaErrorInvalidConfiguration;
   const int groups = (a.C + chains - 1) / chains;

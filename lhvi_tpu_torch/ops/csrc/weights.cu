@@ -74,7 +74,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "dia_traj.cuh"  // clusters_that_fit
+#include "cluster_util.cuh"
 
 namespace {
 
@@ -82,7 +82,7 @@ namespace cg = cooperative_groups;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 1024;  // cluster layout: threads of a block
-constexpr int kMaxCluster = 16;    // the non-portable cluster size
+constexpr int kMaxCluster = 16;    // past 8: the non-portable size
 constexpr int kGridThreads = 512;  // grid layout
 constexpr int kGridPer = 4;        // grid layout: elements a thread a chunk
 
@@ -438,7 +438,8 @@ int launch_cluster(int cluster, int threads, const float* lw, float* lwn,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int fit = 0;
-  cudaError_t err = lhvi_dia::clusters_that_fit(cluster_kernel<E>, &cfg, &fit);
+  cudaError_t err =
+      lhvi_cluster::clusters_that_fit(cluster_kernel<E>, &cfg, &fit);
   if (err != cudaSuccess) return (int)err;
   if (fit < 1) return (int)cudaErrorInvalidValue;  // refused, not shrunk
   err = cudaLaunchKernelEx(&cfg, cluster_kernel<E>, lw, lwn, cum, stats, n);

@@ -90,7 +90,9 @@ def k4_launch(n: int, sms: int = 132) -> K4Launch:
                     6 * G + 2)
 
 
-_k4_geometry = functools.lru_cache(maxsize=256)(k4_launch)
+@functools.lru_cache(maxsize=256)
+def _k4_geometry(n: int, device: int) -> K4Launch:
+    return k4_launch(n, _build.sm_count(device))
 
 
 def _k4_ptrs(log_w, lwn_ptr: int, cum_ptr: int, stats_ptr: int,
@@ -113,24 +115,26 @@ def _k4(log_w, lwn, cum, stats, geo: K4Launch, scratch=None):
              scratch)
 
 
-def _cuda_weight_pipeline(log_w, geo: K4Launch | None = None):
+def _cuda_weight_pipeline(log_w):
     # K4 runs once a temperature in a host-bound loop, so the wrapper keeps
-    # its own host time small: one output buffer [lwn | cum | stats] (cum
-    # starts 16-byte aligned), its pointers by arithmetic, the geometry
-    # cached per N
+    # its own host time small: one output buffer [lwn | cum] (cum starts
+    # 16-byte aligned), its pointers by arithmetic, the geometry cached per
+    # N and card. The stats have a buffer of their own: the engine keeps
+    # every temperature's ess, and a view would keep that temperature's lwn
+    # and cum alive with it.
     (n,) = log_w.shape
     dev = log_w.device
     _check_f32("log_w", log_w, dev, (n,))
-    if geo is None:
-        geo = _k4_geometry(n, _build.sm_count(dev))
+    geo = _k4_geometry(n, dev.index)
     n4 = _round_up(n, 4)
-    out = torch.empty((2 * n4 + 2,), dtype=torch.float32, device=dev)
+    out = torch.empty((2 * n4,), dtype=torch.float32, device=dev)
+    stats = torch.empty((2,), dtype=torch.float32, device=dev)
     scratch = (torch.zeros((geo.scratch,), dtype=torch.float32, device=dev)
                if geo.scratch else None)
     p = out.data_ptr()
-    _k4_ptrs(log_w, p, p + 4 * n4, p + 8 * n4, geo, scratch)
+    _k4_ptrs(log_w, p, p + 4 * n4, stats.data_ptr(), geo, scratch)
     weight_pipeline.launches += 1
-    lwn, _, cum, _, stats = out.split_with_sizes([n, n4 - n, n, n4 - n, 2])
+    lwn, _, cum, _ = out.split_with_sizes([n, n4 - n, n, n4 - n])
     step_z, ess = stats.unbind()
     return lwn, cum, step_z, ess
 

@@ -512,8 +512,16 @@ def test_weight_pipeline_kernel_is_bitwise_reproducible(dev, N, layout):
         G = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
         geo = rs.K4Launch("grid", 1, rs.K4_GRID_THREADS,
                           rs.K4_GRID_PER_THREAD, G, 6 * G + 2)
-    a = rs._cuda_weight_pipeline(lw, geo)
-    b = rs._cuda_weight_pipeline(lw, geo)
+
+    def launch():
+        lwn, cum = torch.empty_like(lw), torch.empty_like(lw)
+        stats = torch.empty((2,), device=dev)
+        scratch = (torch.zeros((geo.scratch,), device=dev) if geo.scratch
+                   else None)
+        rs._k4(lw, lwn, cum, stats, geo, scratch)
+        return lwn, cum, stats[0], stats[1]
+
+    a, b = launch(), launch()
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     _check_weights(a, lw)
@@ -560,6 +568,29 @@ def test_weight_pipeline_kernel_rejects_bad_geometry(dev):
             rs._k4(lw, *out, geo, scratch)
     with pytest.raises(RuntimeError, match="weight_pipeline"):
         rs._k4(lw, *out, rs.K4Launch("grid", 1, 512, 4, 8, 50), None)
+
+
+def test_smc_memory_does_not_grow_with_temperatures(dev):
+    """``run_smc`` keeps every temperature's ess until the end. K4's step_z
+    and ess must not keep that temperature's [N] outputs alive, so the peak
+    of device memory is the same at 10 and at 60 temperatures (were they
+    views of the lwn/cum buffer, it would grow by 8·N bytes a temperature:
+    25 MB here)."""
+    from lhvi_tpu_torch.engines import smc
+    from lhvi_tpu_torch.models.lds import kalman_lds
+
+    g, _, _ = kalman_lds(T=5, seed=0)
+    fg = lt.compile_graph(g, dev)
+    peaks = []
+    for T in (10, 10, 60):  # the first run warms every cache
+        cfg = smc.SMCConfig(n_particles=65536, n_temps=T, n_moves=1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        smc.run_smc(fg, torch.Generator(dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(dev) - base)
+    assert peaks[2] - peaks[1] < 2**20, peaks
 
 
 def test_nuts_and_smc_steps_never_sync_with_the_host(dev):

@@ -6,8 +6,9 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --profile`` instead builds the kernels and
-profiles the ``grid10x10`` HMC, ``nuts10x10``, ``grid128x128`` HMC and
-``smc_denoise11`` fused cells with ``torch.profiler``: device idle share,
+profiles the ``grid10x10`` HMC, ``nuts10x10``, ``grid128x128`` HMC,
+``smc_denoise11`` fused, ``vi10x10`` and ``vi_lifted320`` cells with
+``torch.profiler``: device idle share,
 kernels per unit, the largest kernels' shares; then K1, K2, K3 and K5
 alone at zero and at the main path's steps, and K4 at N = 1, 4,096,
 16,384 and 65,536 (wrapper, launcher, the kernel's device time). PERF.md
@@ -38,7 +39,9 @@ Phases (any failure raises and the script exits non-zero):
    tape twin) on ``robot_map(100)`` (16,384 chains, 8 steps, untempered
    and at β = 0.3 against the SMC base), the 11×11 and 16×16 denoising
    grids (4,096 chains, 5 steps), ``robot_map(100)`` at 4,099 chains and
-   a 127-node tape;
+   a 127-node tape, and on the pod graph's continuous part
+   (``fast_compile`` of friends_smokers(320): 320 stress latents, 128
+   chains, 8 steps);
    K6 (banded leapfrog from given momenta) through ``dia_quad_leapfrog``
    on the 128×128 grid's latent rows (1,024 chains, 1 and 8 steps) and on
    K2's edge shapes against its plain version in f32 and f64;
@@ -57,9 +60,22 @@ Phases (any failure raises and the script exits non-zero):
    on ``hybrid_chain`` and the small robot instance against exact
    enumeration, on ``robot_map(100)`` at bench.py's NUTS settings (16,384
    chains × 20 samples, timed) and against the fused HMC run, then SMC
-   with tempered Gibbs on ``hybrid_chain``. Each is held to exact answers
-   (numpy/scipy oracles, closed forms) or to its plain route, and the
-   bench's throughputs are printed.
+   with tempered Gibbs on ``hybrid_chain``; the VI path: ``vi10x10``
+   (``fit`` on the 10×10 grid, K=8, 1,000 steps, the mixture means
+   against the dense solve), ``vi_lifted320`` (friends_smokers(320) with
+   32 observed smokes, native colour refinement, ``compile_lifted``, K=4,
+   1,500 steps, the observed people's cancer marginals against σ(1.2)
+   and 1/2), ``lift_invariant320`` (the fitted lifted parameters carried
+   to the grounded graph: the same ELBO) and ``vi_c2f_fast1000``
+   (``infer_c2f_fast`` on ``fast_compile`` of friends_smokers(1,000),
+   ~1M latents, the same closed forms); the pod path: ``pod320``
+   (``run_hmc`` on ``fast_compile`` of the 320-person model, 128 chains
+   × 16 samples, the pooled cancer marginals within 5 standard errors of
+   the closed forms) and ``fast_compile`` against ``compile_graph`` on
+   that model. Each is held to exact answers (numpy/scipy oracles,
+   closed forms) or to its plain route, and the bench's throughputs are
+   printed (``vi_steps_per_s``, ``vi_lifted_steps_per_s`` and
+   ``pod_gibbs_chain_samples_per_s`` again on ``[rates]`` lines).
 
 The last three lines are the kernels' JSON record (each kernel's error,
 times, launches on its path and its bound on this card from this run's
@@ -882,11 +898,14 @@ def phase_k5(dev, C_robot=16384, C_denoise=4096):
     """K5 against both plain versions (autograd over
     ``log_prob_cont_batched``, and the tape twin ``tape_energy_grad``) on
     the same inputs and momenta, at the shapes the main path gives it,
-    and on a grid past the reference's gate, all through
-    ``plan="auto"``."""
+    on a grid past the reference's gate and on the pod graph's continuous
+    part (``fast_compile`` of friends_smokers(320): 320 stress latents,
+    128 chains, 8 steps; ``pod320`` itself runs unfused, as bench.py
+    does), all through ``plan="auto"``."""
     import torch
 
     from lhvi_tpu_torch.ops import logpot
+    from lhvi_tpu_torch.relational.fast import fast_compile
 
     tol_x, tol_e = 1e-4, 2e-4
     log(f"[K5] tolerances (tests/test_logpot_kernel.py:71-78's bound): x1, p1 "
@@ -906,7 +925,9 @@ def phase_k5(dev, C_robot=16384, C_denoise=4096):
               5, 0.03, None),
              ("robot100 at 4,099 chains (3 in the last block)", fg_r, 4099,
               8, 0.05, None),
-             ("127-node tape", long_tape_fg(dev), 4099, 5, 0.04, None))
+             ("127-node tape", long_tape_fg(dev), 4099, 5, 0.04, None),
+             ("pod320's continuous part (320 stress latents)",
+              fast_compile(friends_model(320, 32), dev), 128, 8, 0.1, None))
     record = None
     for name, fg, C, steps, eps, beta in cases:
         plan = logpot.logpot_plan_cached(fg)  # what plan="auto" runs
@@ -1481,6 +1502,273 @@ def phase_slice(dev, smi, rows=128, chains=(65536, 1024)):
     return rates
 
 
+SIGMA_1_2 = 1.0 / (1.0 + 2.718281828459045 ** -1.2)  # σ(1.2) = 0.76852
+
+
+def friends_model(n_people, n_observed):
+    """bench.py's flagship: ``friends_smokers(n, hybrid=True)`` with
+    smokes(p_i) observed as i % 2 for i < n_observed. Given smokes(p),
+    cancer(p) is σ(1.2) = 0.7685 for a smoker and 1/2 for a non-smoker
+    exactly (docs/PERF.md:43-44)."""
+    from lhvi_tpu_torch.models.relational import friends_smokers
+
+    rg = friends_smokers(n_people=n_people, hybrid=True)
+    for i in range(n_observed):
+        rg.observe("smokes", (f"p{i}",), i % 2)
+    return rg
+
+
+def cancer_errors(marginal, n_observed):
+    """Largest |P(cancer(p_i) = 1) − closed form| over the observed
+    smokers and non-smokers: ``marginal(key) -> [P(0), P(1)]``."""
+    err = [0.0, 0.0]
+    for i in range(n_observed):
+        want = SIGMA_1_2 if i % 2 else 0.5
+        got = float(marginal(("cancer", (f"p{i}",)))[1])
+        err[i % 2] = max(err[i % 2], abs(got - want))
+    return err
+
+
+def vi_fit_run(vi, fg, cfg, dev):
+    """A ``fit`` ending in a read of its last ELBO → its params."""
+    import torch
+
+    out = {}
+
+    def run(seed):
+        out["params"], trace = vi.fit(fg, torch.Generator(dev).manual_seed(seed),
+                                      cfg)
+        out["elbo"] = float(trace[-1])
+
+    return run, out
+
+
+def phase_vi(dev, smi, n_lifted=320, n_c2f=1000):
+    """Lifted hybrid VI through its entry points: ``vi10x10`` and
+    ``vi_lifted320`` (bench.py:215-254), the lifting invariant at full
+    width (``lift_invariant320``) and coarse-to-fine VI on the array IR at
+    1,000 people (``vi_c2f_fast1000``)."""
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import vi
+    from lhvi_tpu_torch.lift import color_refine, compile_lifted
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+    from lhvi_tpu_torch.relational.fast import fast_compile
+
+    rates = {}
+    # vi10x10: the fused closed-form quadratic ELBO; at the optimum
+    # mean-field VI on a Gaussian target has the exact means
+    t0 = time.perf_counter()
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg = compile_graph(g, dev)
+    J = fg.meta.np_global["quad_J"].astype(np.float64)
+    exact = np.linalg.solve(J, fg.meta.np_global["quad_h"].astype(np.float64))
+    cfg = vi.VIConfig(K=8, n_iters=1000)
+    run, out = vi_fit_run(vi, fg, cfg, dev)
+    dt, spread = timed_runs(run)
+    res = vi.VIResult(fg, out["params"])
+    err = float(np.abs(res.w @ res.params.mu - exact).max())
+    rates["vi_steps_per_s"] = cfg.n_iters / dt
+    log(f"[vi] vi10x10: {fg.n_cont} latents, K={cfg.K}, {cfg.n_iters} steps: "
+        f"vi_steps_per_s {rates['vi_steps_per_s']:.6g} (rep spread "
+        f"{spread:.3f}) on {smi}; final ELBO {out['elbo']:.4f}; mixture "
+        f"means against the dense solve: max abs err {err:.3e} (bound 0.05); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not err < 0.05:
+        raise AssertionError(f"vi10x10: mixture means off the exact means "
+                             f"({err})")
+
+    # vi_lifted320: 103,040 ground RVs colour-refined by the native core
+    t0 = time.perf_counter()
+    n_obs = n_lifted // 10
+    g, index = friends_model(n_lifted, n_obs).ground()
+    n_edges = sum(len(f.nb) for f in g.factors)
+    t1 = time.perf_counter()
+    fg_l = compile_lifted(g, dev)
+    t_lift = time.perf_counter() - t1
+    n_rv_orbits = len(set(color_refine(g)[0].values()))
+    cfg = vi.VIConfig(K=4, n_iters=1500)
+    run, out = vi_fit_run(vi, fg_l, cfg, dev)
+    dt, spread = timed_runs(run)
+    res = vi.VIResult(fg_l, out["params"])
+    err = cancer_errors(lambda k: res.disc_marginal(index[k]), n_obs)
+    rates["vi_lifted_steps_per_s"] = cfg.n_iters / dt
+    log(f"[vi] vi_lifted320: {len(g.rvs)} ground RVs, {n_edges} edges, "
+        f"native refinement + lifted compile {t_lift:.2f} s: {n_rv_orbits} "
+        f"RV orbits ({fg_l.n_cont} continuous + {fg_l.n_disc} discrete "
+        f"latent slots), K={cfg.K}, {cfg.n_iters} steps: "
+        f"vi_lifted_steps_per_s {rates['vi_lifted_steps_per_s']:.6g} (rep "
+        f"spread {spread:.3f}) on {smi}; cancer of the observed smokers / "
+        f"non-smokers: max err {err[1]:.3e} / {err[0]:.3e} from "
+        f"{SIGMA_1_2:.4f} / 0.5 (bound 0.01); {time.perf_counter() - t0:.1f} s")
+    if not max(err) < 0.01:
+        raise AssertionError(f"vi_lifted320 off the closed forms ({err})")
+
+    # lift_invariant320: the fitted lifted params carried to the grounded
+    # graph give the same ELBO (tests/test_lift.py:88's tolerances)
+    t0 = time.perf_counter()
+    fg_g = compile_graph(g, dev)
+    t_compile = time.perf_counter() - t0
+    p_g = vi._transfer_params(fg_l, fg_g, out["params"])
+    e_l = float(vi.elbo(fg_l, out["params"], cfg.n_quad))
+    e_g = float(vi.elbo(fg_g, p_g, cfg.n_quad))  # builds the plans
+
+    def step():
+        leaves = [p.clone().requires_grad_(True) for p in p_g]
+        e = vi.elbo(fg_g, vi.VIParams(*leaves), cfg.n_quad)
+        e.backward()
+        return leaves[3].grad
+
+    step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    float(step().sum())
+    t_step = time.perf_counter() - t1
+    log(f"[vi] lift_invariant320: grounded compile {t_compile:.2f} s "
+        f"({fg_g.n_cont} + {fg_g.n_disc} latents), one grounded ELBO step "
+        f"(value and gradient) {t_step * 1e3:.3f} ms; lifted ELBO "
+        f"{e_l:.6f}, grounded {e_g:.6f} (rel diff "
+        f"{abs(e_l - e_g) / abs(e_g):.3e}; bound rtol 1e-4, atol 1e-3)")
+    if not np.isclose(e_l, e_g, rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"lifting invariant broken: {e_l} vs {e_g}")
+    del fg_g, p_g
+
+    # vi_c2f_fast1000: fast_compile → refine_ir stages → the grounded ELBO
+    # at ~1M latents, the widest VI step the repo runs
+    t0 = time.perf_counter()
+    n_obs = n_c2f // 10
+    fg = fast_compile(friends_model(n_c2f, n_obs), dev)
+    t_compile = time.perf_counter() - t0
+    cfg = vi.VIConfig(K=4, n_quad=7, n_iters=300)
+    stages = []
+    fit_from = vi._fit_from
+
+    def timed_fit(fg_s, params, stage_cfg):  # per-stage clock, this phase only
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, trace = fit_from(fg_s, params, stage_cfg)
+        float(trace[-1])
+        stages.append((fg_s.n_cont, fg_s.n_disc, stage_cfg.n_iters,
+                       time.perf_counter() - t1))
+        return params, trace
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    vi._fit_from = timed_fit
+    try:
+        res = vi.infer_c2f_fast(fg, 0, cfg, schedule=(1, None, "ground"))
+    finally:
+        vi._fit_from = fit_from
+    peak = torch.cuda.max_memory_allocated(dev)
+    err = cancer_errors(res.disc_marginal, n_obs)
+    log(f"[vi] vi_c2f_fast1000: fast_compile {t_compile:.2f} s, "
+        f"{fg.n_cont} + {fg.n_disc} latents, "
+        f"{sum(b.n_factors for b in fg.buckets)} factor rows; K={cfg.K}, "
+        f"n_quad={cfg.n_quad}, schedule (1, None, 'ground'); stages (orbits "
+        f"continuous + discrete, steps, steps/s incl. their first ELBO): "
+        + "; ".join(f"{c} + {d}, {n}, {n / t:.6g}" for c, d, n, t in stages)
+        + f"; peak device memory {peak / 2**30:.3f} GiB on {smi}; cancer of "
+        f"the observed smokers / non-smokers: max err {err[1]:.3e} / "
+        f"{err[0]:.3e} (bound 0.02); {time.perf_counter() - t0:.1f} s")
+    if not (max(err) < 0.02 and np.isfinite(res.trace).all()):
+        raise AssertionError(f"vi_c2f_fast1000 off the closed forms ({err})")
+    return rates
+
+
+def phase_pod(dev, smi, n_people=320, C=128, S=16):
+    """bench.py:344-376's pod cell (``pod_gibbs_chain_samples_per_s``):
+    ``run_hmc`` on ``fast_compile`` of the lifted-VI model, mode swap off;
+    then ``fast_compile`` against ``compile_graph`` on the same model
+    (tests/test_fuzz_fast_compile.py:168 on the card)."""
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import hmc
+    from lhvi_tpu_torch.relational.fast import fast_compile
+
+    t0 = time.perf_counter()
+    n_obs = n_people // 10
+    fg = fast_compile(friends_model(n_people, n_obs), dev)
+    t_compile = time.perf_counter() - t0
+    cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.1)
+    keep = {}
+
+    def run(seed):
+        keep["m"], _, _ = hmc.run_hmc(
+            fg, torch.Generator(dev).manual_seed(seed), cfg, n_chains=C,
+            n_warmup=0, n_samples=S, collect="moments", stream_diag=False)
+        float(keep["m"]["mean"][0])
+
+    dt, spread = timed_runs(run)
+    rate = C * S / dt
+    # each draw of cancer(p) given the observed smokes(p) is an exact
+    # conditional draw: pooled over the 16 smokers (non-smokers), a
+    # binomial proportion of 16·C·S draws
+    probs = keep["m"]["disc_probs"].cpu().numpy()
+    n_draws = (n_obs // 2) * C * S
+    msg = []
+    for parity, want in ((1, SIGMA_1_2), (0, 0.5)):
+        idx = [fg.meta.loc(("cancer", (f"p{i}",)))[1]
+               for i in range(n_obs) if i % 2 == parity]
+        got = float(probs[idx, 1].mean())
+        z = abs(got - want) / (want * (1 - want) / n_draws) ** 0.5
+        msg.append((got, want, z))
+    log(f"[pod] pod320: fast_compile {t_compile:.2f} s, {fg.n_cont} + "
+        f"{fg.n_disc} latents, {fg.n_colors} colours; {C} chains x {S} "
+        f"samples, n_leapfrog 6, step 0.1, mode swap off: "
+        f"pod_gibbs_chain_samples_per_s {rate:.6g} (rep spread {spread:.3f}) "
+        f"on {smi}; pooled cancer marginal: " + ", ".join(
+            f"{g:.5f} against {w:.5f} ({z:.2f} SE)" for g, w, z in msg)
+        + " (bound 5 SE)")
+    if not all(z < 5 for _, _, z in msg):
+        raise AssertionError("pod320: cancer marginals off the closed forms")
+
+    # the same IR as the object path: log p at mapped states, the discrete
+    # full conditionals, and the colour plan's logits against disc_logits
+    t0 = time.perf_counter()
+    rg = friends_model(n_people, n_obs)
+    g, index = rg.ground()
+    fg_o = compile_graph(g, dev, fuse_quadratic=False)
+    cont = np.zeros(fg_o.n_cont, np.int64)
+    disc = np.zeros(fg_o.n_disc, np.int64)
+    for key, rv in index.items():
+        kind, i_o = fg_o.meta.loc(rv)
+        kind_f, i_f = fg.meta.loc(key)
+        if kind != kind_f:
+            raise AssertionError(f"{key}: {kind} vs {kind_f}")
+        if kind == "c":
+            cont[i_o] = i_f
+        elif kind == "d":
+            disc[i_o] = i_f
+    gen = torch.Generator(dev).manual_seed(5)
+    xc_o, xd_o = fg_o.init_state_batched(gen, 3, jitter=1.0)
+    xc_f = torch.zeros((3, fg.n_cont), device=dev)
+    xd_f = torch.zeros((3, fg.n_disc), dtype=torch.int64, device=dev)
+    cont_t, disc_t = torch.as_tensor(cont, device=dev), torch.as_tensor(
+        disc, device=dev)
+    xc_f[:, cont_t], xd_f[:, disc_t] = xc_o, xd_o
+    lp_o = fg_o.log_prob_batched(xc_o, xd_o)
+    lp_f = fg.log_prob_batched(xc_f, xd_f)
+    lg_o = fg_o.disc_logits(xc_o, xd_o)
+    lg_f = fg.disc_logits(xc_f, xd_f)[:, disc_t]
+    lg_p = hmc.planned_logits(fg, xc_f, xd_f)
+    lg_b = fg.disc_logits(xc_f, xd_f)
+    big = lg_b < -1e29
+    e_lp = rel_err(lp_f, lp_o)
+    e_lg = rel_err(lg_f, lg_o)
+    e_pl = rel_err(torch.where(big, 0.0, lg_p), torch.where(big, 0.0, lg_b))
+    log(f"[pod] fast_compile against compile_graph on the card (errors "
+        f"relative to max(1, |value|)): log p {e_lp:.3e} (bound 1e-5), "
+        f"disc_logits {e_lg:.3e}, colour plan against disc_logits "
+        f"{e_pl:.3e} (bounds 1e-4, tests/test_fuzz_fast_compile.py:58-85); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (e_lp < 1e-5 and e_lg < 1e-4 and e_pl < 1e-4):
+        raise AssertionError("fast_compile disagrees with compile_graph")
+    return {"pod_gibbs_chain_samples_per_s": rate}
+
+
 def check_moments(name, moments, diag, mean_x, spot, var_x):
     """tests/test_ell_oracle.py:76-94 thresholds."""
     import numpy as np
@@ -1522,7 +1810,10 @@ def profile_window(label, run, units, unit, smi):
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation (torch.optim's "Optimizer.step#...") spans the
+        # kernels it launched on the device timeline: not a device op
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.time_range.elapsed_us()
     busy = sum(t for _, t in by_name.values())
@@ -1545,9 +1836,10 @@ def profile_cells(dev, smi):
     """``--profile``: the ``grid10x10`` HMC cell (65,536 chains, 20
     transitions, K1), the ``nuts10x10`` cell (65,536 chains, max_depth 4,
     20 transitions, K3), the ``grid128x128`` HMC cell (1,024 chains, 20
-    transitions, K2) and the ``smc_denoise11`` fused cell (16,384
-    particles, a fixed schedule of 50 temperatures, K5), as PERF.md §5
-    reads them, all with streamed diagnostics off."""
+    transitions, K2), the ``smc_denoise11`` fused cell (16,384
+    particles, a fixed schedule of 50 temperatures, K5), all with
+    streamed diagnostics off, and the ``vi10x10`` and ``vi_lifted320``
+    cells (200 Adam steps of ``fit``), as PERF.md §5 reads them."""
     import torch
 
     from lhvi_tpu_torch import compile_graph
@@ -1597,6 +1889,16 @@ def profile_cells(dev, smi):
 
     profile_window("smc_denoise11 fused, 16,384 particles, 50 temperatures",
                    denoise, 50, "temperature", smi)
+    from lhvi_tpu_torch.engines import vi
+    from lhvi_tpu_torch.lift import compile_lifted
+
+    fg_l = compile_lifted(friends_model(320, 32).ground()[0], dev)
+    for label, fg, cfg in (("vi10x10, K=8", fg10, vi.VIConfig(K=8, n_iters=200)),
+                           ("vi_lifted320, K=4", fg_l,
+                            vi.VIConfig(K=4, n_iters=200))):
+        run, _ = vi_fit_run(vi, fg, cfg, dev)
+        profile_window(f"{label}, {cfg.n_iters} Adam steps",
+                       lambda: run(0), cfg.n_iters, "step", smi)
     step_costs(dev, smi)
 
 
@@ -1748,7 +2050,10 @@ def main() -> int:
             ("dia_leapfrog", lambda: path_dia_leapfrog(dev),
              ("dia_leapfrog",)),
             ("hybrid", lambda: phase_hybrid(dev, smi, keep["robot_hmc"]),
-             ("weights",))):
+             ("weights",)),
+            # VI and the pod cell reach no TPU kernel in the reference
+            ("vi", lambda: keep.update(phase_vi(dev, smi)), ()),
+            ("pod", lambda: keep.update(phase_pod(dev, smi)), ())):
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
@@ -1787,6 +2092,9 @@ def main() -> int:
          "replaces": "lhvi_tpu/ops/dia.py:184",
          "launches": launches["dia_leapfrog"], **k6},
     ]
+    for k in ("vi_steps_per_s", "vi_lifted_steps_per_s",
+              "pod_gibbs_chain_samples_per_s"):
+        log(f"[rates] {k} {keep[k]:.6g} on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

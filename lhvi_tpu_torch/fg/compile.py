@@ -49,6 +49,7 @@ class FGMeta:
         self.graph: Graph = None
         self.cont_counts: np.ndarray = None  # lifted orbit sizes (None=grounded)
         self.disc_counts: np.ndarray = None
+        self.orbit_of: Dict[int, Tuple[str, int]] = None  # lifted: id(rv) -> slot
         self.np_buckets: List[Dict[str, np.ndarray]] = []
         self.np_global: Dict[str, np.ndarray] = {}
 
@@ -56,11 +57,20 @@ class FGMeta:
         """('c'|'d'|'obs', flat index) of an RV in the compiled state."""
         return self.index[id(rv)]
 
+    # Engine results resolve domain facts through these hooks, never
+    # through ``rv.domain``, so metas that address variables by key (the
+    # relational compiler's ``FastMeta``) work with every engine.
     def disc_size(self, rv) -> int:
         return rv.domain.size
 
     def disc_values(self, rv):
         return rv.domain.values
+
+    def value_index(self, rv, x) -> int:
+        return rv.domain.value_index(x)
+
+    def obs_value(self, rv):
+        return rv.value
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -72,6 +82,11 @@ class FactorBucket:
 
     kind: str
     pattern: Tuple[bool, ...]
+    # per-slot latency, uniform over the bucket (the evidence pattern is
+    # part of the bucket key): one bool per continuous / discrete slot,
+    # True = latent; VI's quadrature grid is built from them
+    cont_lat: Tuple[bool, ...]
+    disc_lat: Tuple[bool, ...]
     kernel: Callable
     params: Dict[str, torch.Tensor]  # leaves [n_f, ...]
     cont_idx: torch.Tensor  # i64 [n_f, ac] into x_c (0 where not latent)
@@ -237,6 +252,10 @@ class CompiledFG:
     quad_dia_w: Any = None
     quad_dia_pos: Any = None
     quad_dia_inv: Any = None
+    # VI's per-bucket quadrature plans, keyed by n_quad: built on the first
+    # ELBO and kept on the device (engines/vi.py::_vi_plans)
+    vi_plans: Dict[int, Any] = dataclasses.field(default_factory=dict,
+                                                 repr=False)
 
     @property
     def cont_pure_quad(self) -> bool:
@@ -376,6 +395,13 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+# a bucket's index and evidence tables, as ``FactorBucket`` fields and as
+# keys of its host mirror in ``FGMeta.np_buckets``
+_BUCKET_TABLES = ("cont_idx", "cont_mask", "cont_const", "disc_idx",
+                  "disc_mask", "disc_first", "disc_const", "disc_vals",
+                  "disc_size", "scale")
+
+
 def _tensor(a, device, dtype=None) -> torch.Tensor:
     """Host numpy → device tensor (a copy); integer tables become int64."""
     a = np.asarray(a)
@@ -386,7 +412,7 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 def compile_graph(
     g: Graph,
-    device,
+    device="cuda",
     pad_to: int = 8,
     scales: Dict[int, float] = None,
     var_overrides: Dict[int, Tuple[str, int]] = None,
@@ -398,7 +424,8 @@ def compile_graph(
     quad_max_n: int = 4096,
     ell_max_deg: int = 128,
 ) -> CompiledFG:
-    """Compile a host ``Graph`` into the tensor IR on ``device``.
+    """Compile a host ``Graph`` into the tensor IR on ``device`` (the
+    card unless the caller names another).
 
     ``scales``/``var_overrides``/``n_*_override`` are the lifting hooks: one
     representative factor per orbit with ``scale = |orbit|`` and orbit-tied
@@ -584,13 +611,12 @@ def compile_graph(
             FactorBucket(
                 kind=str(bkey),
                 pattern=pattern,
+                cont_lat=tuple(l for l, c in zip(latency, pattern) if c),
+                disc_lat=tuple(l for l, c in zip(latency, pattern) if not c),
                 kernel=fs[0].potential.kernel(pattern),
                 kernel_planar=fs[0].potential.kernel_planar(pattern),
                 params={k: _tensor(v, device) for k, v in params.items()},
-                **{k: _tensor(np_b[k], device) for k in (
-                    "cont_idx", "cont_mask", "cont_const", "disc_idx",
-                    "disc_mask", "disc_first", "disc_const", "disc_vals",
-                    "disc_size", "scale")},
+                **{k: _tensor(np_b[k], device) for k in _BUCKET_TABLES},
             )
         )
 

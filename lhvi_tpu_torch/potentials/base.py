@@ -47,6 +47,8 @@ class Potential:
         fused log-potential kernel traces.
       - ``symmetric``: True if invariant to argument permutation (read by
         the lifting pass).
+      - ``color_key()``: the identity that seeds factor colors in color
+        refinement (``lift/color.py``).
     """
 
     symmetric: bool = False
@@ -59,6 +61,10 @@ class Potential:
 
     def kernel(self, pattern: Tuple[bool, ...]) -> Callable:
         raise NotImplementedError
+
+    def color_key(self) -> Hashable:
+        """Identity used to seed factor colors in color refinement."""
+        return (self.bucket_key(), _np_key(self.param_arrays()))
 
     def kernel_planar(self, pattern: Tuple[bool, ...]):
         """Optional factor-minor kernel: ``log_pot(params, slots)`` where
@@ -75,3 +81,7 @@ class Potential:
         path, and K5 (``fused_logpot=True`` on the card) refuses it.
         """
         return None
+
+
+def _np_key(d: Dict[str, np.ndarray]) -> Hashable:
+    return tuple((k, v.shape, v.tobytes()) for k, v in sorted(d.items()))

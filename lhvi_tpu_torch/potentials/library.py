@@ -257,6 +257,9 @@ class MLNPotential(Potential):
     def param_arrays(self):
         return {"w": np.asarray(self.w)}
 
+    def color_key(self):
+        return (self.bucket_key(), float(self.w))
+
     def kernel(self, pattern):
         formula, hard = self.formula, self.hard
 

@@ -1,6 +1,6 @@
-"""The relational layer of the port: grounding (``graph``) and evidence
-files (``data``). The vectorized relational compiler (the reference's
-``relational/fast.py``) arrives with the pod-flagship slice."""
+"""The relational layer of the port: grounding (``graph``), evidence
+files (``data``) and the vectorized relational compiler (``fast``), which
+grounds a ``RelationalGraph`` straight to the array IR."""
 
 from lhvi_tpu_torch.relational.graph import RelationalGraph, Predicate, Atom, ParamF
 from lhvi_tpu_torch.relational.data import load_evidence, parse_evidence_line

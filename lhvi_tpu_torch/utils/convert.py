@@ -12,6 +12,7 @@ import torch
 
 from lhvi_tpu_torch.engines.hmc import HMCState, _StreamDiagDisc
 from lhvi_tpu_torch.engines.smc import SMCState
+from lhvi_tpu_torch.engines.vi import VIParams
 from lhvi_tpu_torch.fg.compile import CompiledFG, _tensor
 
 QUAD_TABLES = ("quad_J", "quad_h", "quad_c", "quad_diag", "quad_ell_col",
@@ -122,3 +123,15 @@ def stream_diag_disc_from_numpy(acc: dict, device) -> _StreamDiagDisc:
     return _StreamDiagDisc(*(
         _tensor(np.asarray(acc[k], np.float32), torch.device(device))
         for k in _StreamDiagDisc._fields))
+
+
+def vi_params_from_numpy(arrays: dict, device) -> VIParams:
+    """The port's ``VIParams`` from a reference ``VIParams``'s fields (e.g.
+    ``{k: np.asarray(v) for k, v in params._asdict().items()}``): mixture
+    log-weights, means, log-scales and categorical logits, as f32 tensors."""
+    missing = [k for k in VIParams._fields if k not in arrays]
+    if missing:
+        raise KeyError(f"vi_params_from_numpy: missing fields {missing}")
+    return VIParams(*(
+        _tensor(np.asarray(arrays[k], np.float32), torch.device(device))
+        for k in VIParams._fields))

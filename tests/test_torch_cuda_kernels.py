@@ -813,3 +813,65 @@ def test_nuts_within_gibbs_and_tempered_smc_run_on_the_card(dev):
         assert bool(((b >= 0) & (b < sizes[None])).all())
     assert bool(((acc >= 0) & (acc <= 1)).all()) and int(depth.max()) <= 3
     assert bool(torch.isfinite(log_z))
+
+
+def _vi_models(name, device):
+    """The lifted flagship (``friends_smokers(16)``, smokes(p0) = 1, K = 4,
+    n_quad = 7) or the 10×10 grid (K = 8, n_quad = 9) on ``device``."""
+    if name == "grid10":
+        g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+        return lt.compile_graph(g, device), 8, 9
+    from lhvi_tpu_torch.lift import compile_lifted
+    from lhvi_tpu_torch.models.relational import friends_smokers
+
+    rg = friends_smokers(n_people=16, hybrid=True)
+    rg.observe("smokes", ("p0",), 1)
+    return compile_lifted(rg.ground()[0], device), 4, 7
+
+
+@pytest.mark.parametrize("name", ["flagship16", "grid10"])
+def test_vi_elbo_on_the_card_equals_cpu(dev, name):
+    """The ELBO and its gradient from the same parameters on the card and
+    on the CPU, in f32: the value within rtol 1e-5, each gradient leaf
+    within 1e-5·(1 + max |CPU leaf|)."""
+    from lhvi_tpu_torch.engines import vi
+
+    out = []
+    for device in (dev, torch.device("cpu")):
+        fg, K, n_quad = _vi_models(name, device)
+        rng = np.random.default_rng(3)
+        leaves = [torch.tensor(a, dtype=torch.float32, device=device,
+                               requires_grad=True) for a in (
+            rng.normal(0.0, 0.5, K), rng.normal(0.0, 1.0, (K, fg.n_cont)),
+            rng.normal(-0.3, 0.3, (K, fg.n_cont)),
+            rng.normal(0.0, 1.0, (K, fg.n_disc, fg.max_v)))]
+        e = vi.elbo(fg, vi.VIParams(*leaves), n_quad)
+        e.backward()
+        out.append((float(e), [None if t.grad is None else t.grad.cpu()
+                               for t in leaves]))
+    (e_gpu, g_gpu), (e_cpu, g_cpu) = out
+    np.testing.assert_allclose(e_gpu, e_cpu, rtol=1e-5)
+    for a, b in zip(g_gpu, g_cpu):
+        assert (a is None) == (b is None)
+        if b is not None and b.numel():
+            tol = 1e-5 * (1.0 + float(b.abs().max()))
+            assert float((a - b).abs().max()) <= tol
+
+
+def test_vi_fit_memory_does_not_grow_with_steps(dev):
+    """``fit`` keeps its ELBO trace in one device tensor and reads nothing
+    back, so its peak device memory is the same at 100 and at 1,000
+    steps (4 bytes a step of trace aside)."""
+    from lhvi_tpu_torch.engines import vi
+
+    fg, K, n_quad = _vi_models("flagship16", dev)
+    peaks = []
+    for n_iters in (100, 100, 1000):  # the first run builds the plans
+        cfg = vi.VIConfig(K=K, n_quad=n_quad, n_iters=n_iters)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        vi.fit(fg, torch.Generator(dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(dev) - base)
+    assert peaks[2] - peaks[1] < 2**16, peaks

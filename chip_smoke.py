@@ -5,9 +5,13 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --profile`` instead builds the kernels and
+(``python3 chip_smoke.py --phase bp`` builds the kernels and runs only
+the named paths of phase 6, comma-separated (``hybrid`` needs ``robot``
+before it), and prints no result lines.
+``python3 chip_smoke.py --profile`` instead builds the kernels and
 profiles the ``grid10x10`` HMC, ``nuts10x10``, ``grid128x128`` HMC,
-``smc_denoise11`` fused, ``vi10x10`` and ``vi_lifted320`` cells with
+``smc_denoise11`` fused, ``vi10x10``, ``vi_lifted320`` and the pod cells
+(``--profile pod``: those alone) with
 ``torch.profiler``: device idle share,
 kernels per unit, the largest kernels' shares; then K1, K2, K3 and K5
 alone at zero and at the main path's steps, and K4 at N = 1, 4,096,
@@ -72,10 +76,19 @@ Phases (any failure raises and the script exits non-zero):
    (``run_hmc`` on ``fast_compile`` of the 320-person model, 128 chains
    × 16 samples, the pooled cancer marginals within 5 standard errors of
    the closed forms) and ``fast_compile`` against ``compile_graph`` on
-   that model. Each is held to exact answers (numpy/scipy oracles,
-   closed forms) or to its plain route, and the bench's throughputs are
-   printed (``vi_steps_per_s``, ``vi_lifted_steps_per_s`` and
-   ``pod_gibbs_chain_samples_per_s`` again on ``[rates]`` lines).
+   that model; the mode-swap path (``phase_modeswap``: HMC, NUTS and SMC
+   with the move on the locked spin clique at 4,096 chains against exact
+   enumeration, ``modeswap40``'s unlock, ``pod320_modeswap`` with the
+   move every transition and every 4th); the pod scale path
+   (``phase_pod_scale``: ``pod600`` and ``pod1000``, bench.py:449-452 at
+   full size); the BP path (``phase_bp``: GaBP on the 10×10 and 128×128
+   grids against the dense solve and a sparse LU, LBP and EPBP on
+   ``hybrid_chain`` with ``belief(x)``, EPBP on the 10×10 grid, lifted
+   LBP on the 320-person flagship, MaxWalkSAT against exact modes). Each
+   is held to exact answers (numpy/scipy oracles, closed forms) or to its
+   plain route, and the bench's throughputs are printed (the VI, pod,
+   mode-swap and BP rates again on ``[rates]`` lines; one phase alone:
+   ``python3 chip_smoke.py --phase NAME``).
 
 The last three lines are the kernels' JSON record (each kernel's error,
 times, launches on its path and its bound on this card from this run's
@@ -1450,8 +1463,6 @@ def run_and_time(hmc, fg, cfg, dev, n_chains, n_samples):
 
 def phase_slice(dev, smi, rows=128, chains=(65536, 1024)):
     import numpy as np
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spla
     import torch
 
     from lhvi_tpu_torch import compile_graph
@@ -1477,16 +1488,8 @@ def phase_slice(dev, smi, rows=128, chains=(65536, 1024)):
     fg = compile_graph(g, dev, quad_max_n=min(4096, rows * rows // 4))
     assert fg.quad_sparse and hmc._use_dia(fg, hmc.HMCConfig())
     n = fg.n_cont
-    diag_np = fg.quad_diag.cpu().numpy().astype(np.float64)
-    col = fg.quad_ell_col.cpu().numpy()
-    w = fg.quad_ell_w.cpu().numpy().astype(np.float64)
-    Jsp = sp.csc_matrix((np.concatenate([diag_np, w.ravel()]),
-                         (np.concatenate([np.arange(n), np.repeat(np.arange(n),
-                                                                  col.shape[1])]),
-                          np.concatenate([np.arange(n), col.ravel()]))),
-                        shape=(n, n))
-    lu = spla.splu(Jsp)
-    mean_x = lu.solve(fg.quad_h.cpu().numpy().astype(np.float64))
+    lu, h = grid_lu(fg)
+    mean_x = lu.solve(h)
     spot = np.random.default_rng(0).choice(n, 64, replace=False)
     var_x = np.array([lu.solve(np.eye(n, 1, -int(i)).ravel())[i] for i in spot])
     cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.05)
@@ -1706,22 +1709,13 @@ def phase_pod(dev, smi, n_people=320, C=128, S=16):
     # each draw of cancer(p) given the observed smokes(p) is an exact
     # conditional draw: pooled over the 16 smokers (non-smokers), a
     # binomial proportion of 16·C·S draws
-    probs = keep["m"]["disc_probs"].cpu().numpy()
-    n_draws = (n_obs // 2) * C * S
-    msg = []
-    for parity, want in ((1, SIGMA_1_2), (0, 0.5)):
-        idx = [fg.meta.loc(("cancer", (f"p{i}",)))[1]
-               for i in range(n_obs) if i % 2 == parity]
-        got = float(probs[idx, 1].mean())
-        z = abs(got - want) / (want * (1 - want) / n_draws) ** 0.5
-        msg.append((got, want, z))
+    msg = pooled_cancer(fg, keep["m"]["disc_probs"].cpu().numpy(), n_obs,
+                        C * S)
     log(f"[pod] pod320: fast_compile {t_compile:.2f} s, {fg.n_cont} + "
         f"{fg.n_disc} latents, {fg.n_colors} colours; {C} chains x {S} "
         f"samples, n_leapfrog 6, step 0.1, mode swap off: "
         f"pod_gibbs_chain_samples_per_s {rate:.6g} (rep spread {spread:.3f}) "
-        f"on {smi}; pooled cancer marginal: " + ", ".join(
-            f"{g:.5f} against {w:.5f} ({z:.2f} SE)" for g, w, z in msg)
-        + " (bound 5 SE)")
+        f"on {smi}; pooled cancer marginal: " + cancer_line(msg))
     if not all(z < 5 for _, _, z in msg):
         raise AssertionError("pod320: cancer marginals off the closed forms")
 
@@ -1767,6 +1761,387 @@ def phase_pod(dev, smi, n_people=320, C=128, S=16):
     if not (e_lp < 1e-5 and e_lg < 1e-4 and e_pl < 1e-4):
         raise AssertionError("fast_compile disagrees with compile_graph")
     return {"pod_gibbs_chain_samples_per_s": rate}
+
+
+def pooled_cancer(fg, probs, n_obs, n_draws):
+    """Pooled P(cancer) of the observed smokers and non-smokers against
+    σ(1.2) and 1/2: ``[(got, want, |z|)]`` with ``n_draws`` draws a person
+    (each an exact conditional draw given the observed smokes)."""
+    out = []
+    for parity, want in ((1, SIGMA_1_2), (0, 0.5)):
+        idx = [fg.meta.loc(("cancer", (f"p{i}",)))[1]
+               for i in range(n_obs) if i % 2 == parity]
+        got = float(probs[idx, 1].mean())
+        se = (want * (1 - want) / (len(idx) * n_draws)) ** 0.5
+        out.append((got, want, abs(got - want) / se))
+    return out
+
+
+def cancer_line(msg):
+    return ", ".join(f"{g:.5f} against {w:.5f} ({z:.2f} SE)"
+                     for g, w, z in msg) + " (bound 5 SE)"
+
+
+def spin_clique(n=4, w=2.5, bias=0.4):
+    """tests/test_modeswap.py:22-36: n exchangeable binary spins coupled
+    all-pairs by a soft biimplication of weight w, each biased toward 1:
+    single-site flips face a (n−1)·w barrier."""
+    from lhvi_tpu_torch import F, Domain, Graph, RV
+    from lhvi_tpu_torch.potentials import MLNPotential, leq
+
+    dom = Domain([0, 1])
+    spins = [RV(dom, name=f"s{i}") for i in range(n)]
+    fs = [F(MLNPotential(lambda a: leq(a[0], a[1]), w=w), [spins[i], spins[j]])
+          for i in range(n) for j in range(i + 1, n)]
+    fs += [F(MLNPotential(lambda a: a[0], w=bias), [s]) for s in spins]
+    return Graph(spins, fs), spins
+
+
+def frozen_disagreeing(xd):
+    """Latents frozen in every chain at values that disagree across chains
+    (tests/test_modeswap.py:280-286): ``xd [S, C, n]``."""
+    import numpy as np
+
+    xd = xd.cpu().numpy()
+    frozen = (xd.var(axis=0) == 0).all(axis=0)
+    return int((frozen & (xd[0].std(axis=0) > 0)).sum())
+
+
+def phase_modeswap(dev, smi, n_people=320, C=128, S=8, C_spin=4096,
+                   n40=40):
+    """The collapsed orbit-flip move: HMC, NUTS and SMC with it on the
+    locked spin clique against exact enumeration (tests/test_modeswap.py's
+    thresholds), the unlock at 40 people (``modeswap40``) and the pod
+    flagship at 320 people with the move every transition and every 4th
+    (``pod320_modeswap``)."""
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import hmc, modeswap, nuts, smc
+    from lhvi_tpu_torch.relational.fast import fast_compile
+    from lhvi_tpu_torch.utils.oracle import ExactPosterior
+
+    # spin_clique: the reference's thresholds at 4,096 chains
+    t0 = time.perf_counter()
+    cases = (("hmc", 2.5, 0.4, 1, 0.04), ("hmc", 6.0, 0.25, 1, 0.05),
+             ("hmc", 6.0, 0.25, 3, 0.06), ("nuts", 5.0, 0.3, 1, 0.06),
+             ("smc", 4.0, 0.3, 1, 0.05))
+    for engine, w, bias, every, bound in cases:
+        g, spins = spin_clique(4, w, bias)
+        exact = ExactPosterior(g)
+        fg = compile_graph(g, dev)
+        gen = torch.Generator(dev).manual_seed(int(10 * w) + every)
+        if engine == "smc":
+            res = smc.sample(fg, gen, smc.SMCConfig(
+                n_particles=C_spin, n_temps=25, n_moves=2, mode_swap=True))
+            acc = float("nan")
+        else:
+            mod, cfg = ((hmc, hmc.HMCConfig(mode_swap=True,
+                                            mode_swap_every=every))
+                        if engine == "hmc" else
+                        (nuts, nuts.NUTSConfig(mode_swap=True)))
+            res = mod.sample(fg, gen, cfg=cfg, n_chains=C_spin, n_warmup=100,
+                             n_samples=300, collect="moments")
+            acc = float(res.diag["mode_swap_accept"])
+        err = max(float(np.abs(res.disc_marginal(s)
+                               - exact.disc_marginal(s)).max()) for s in spins)
+        log(f"[modeswap] spin_clique {engine}, w {w}, bias {bias}, every "
+            f"{every}: marginal err {err:.4f} (bound {bound}); exact P(s=1) "
+            f"{exact.disc_marginal(spins[0])[1]:.4f}; mode_swap_accept "
+            f"{acc:.4f}")
+        if not (err < bound and (engine == "smc" or acc > 0.02)):
+            raise AssertionError(f"mode swap on the spin clique ({engine}, "
+                                 f"w {w}) off exact enumeration")
+    log(f"[modeswap] spin_clique: {time.perf_counter() - t0:.1f} s")
+
+    # modeswap40: without the move the smokes clique freezes per chain
+    t0 = time.perf_counter()
+    fg = fast_compile(friends_model(n40, 4), dev)
+    seen = []
+    for on in (False, True):
+        _, xd, diag = hmc.run_hmc(
+            fg, torch.Generator(dev).manual_seed(0),
+            hmc.HMCConfig(n_leapfrog=4, mode_swap=on), n_chains=8,
+            n_warmup=50, n_samples=200, collect="samples")
+        seen.append((frozen_disagreeing(xd),
+                     float(diag.get("mode_swap_accept", float("nan")))))
+    log(f"[modeswap] modeswap40: {fg.n_disc} discrete latents, 8 chains x "
+        f"250 transitions: frozen and disagreeing latents {seen[0][0]} with "
+        f"the move off, {seen[1][0]} on (mode_swap_accept {seen[1][1]:.4f}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (seen[0][0] > 0 and seen[1][0] == 0):
+        raise AssertionError("modeswap40: the move did not unlock the clique")
+
+    # pod320_modeswap: phase_pod's model and chains, the move on
+    n_obs = n_people // 10
+    fg = fast_compile(friends_model(n_people, n_obs), dev)
+    t0 = time.perf_counter()
+    plan = modeswap.plan_for(fg)
+    t_plan = time.perf_counter() - t0
+    sizes = [int((plan.vars_[g] < fg.n_disc).sum()) for g in
+             range(plan.n_groups)]
+    f_sizes = [int(plan.f_mask[g].sum()) for g in range(plan.n_groups)]
+    rates = {}
+    for every in (1, 4):
+        cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.1, mode_swap=True,
+                            mode_swap_every=every)
+        keep = {}
+
+        def run(seed):
+            keep["m"], _, keep["d"] = hmc.run_hmc(
+                fg, torch.Generator(dev).manual_seed(seed), cfg, n_chains=C,
+                n_warmup=0, n_samples=S, collect="moments",
+                stream_diag=False)
+            float(keep["m"]["mean"][0])
+
+        dt, spread = timed_runs(run)
+        rates[every] = C * S / dt
+        msg = pooled_cancer(fg, keep["m"]["disc_probs"].cpu().numpy(), n_obs,
+                            C * S)
+        log(f"[modeswap] pod320_modeswap every {every}: {C} chains x {S} "
+            f"samples: {rates[every]:.6g} chain-samples/s (rep spread "
+            f"{spread:.3f}) on {smi}; mode_swap_accept "
+            f"{float(keep['d']['mode_swap_accept']):.4f}; plan: "
+            f"{plan.n_groups} groups of {sizes} members, F of {f_sizes}, "
+            f"has_f {plan.has_f}, F's colour cells "
+            f"{[len(c) for c in plan.f_cells]} of {fg.n_colors}, direct "
+            f"buckets {plan.direct_buckets}, built in {t_plan:.2f} s; pooled "
+            f"cancer marginal: " + cancer_line(msg))
+        if not all(z < 5 for _, _, z in msg):
+            raise AssertionError("pod320_modeswap: cancer marginals off the "
+                                 "closed forms")
+    return {f"pod320_modeswap{k}_chain_samples_per_s": v
+            for k, v in rates.items()}
+
+
+def phase_pod_scale(dev, smi, sizes=((600, 16), (1000, 8))):
+    """bench.py:449-452's scale fields at full size, mode swap off: one
+    sample a call, the median of 3 calls after a warm one."""
+    import torch
+
+    from lhvi_tpu_torch.engines import hmc
+    from lhvi_tpu_torch.fg.compile import color_plan_bytes
+    from lhvi_tpu_torch.relational.fast import fast_compile
+
+    rates = {}
+    for n_people, C in sizes:
+        t0 = time.perf_counter()
+        n_obs = n_people // 10
+        torch.cuda.reset_peak_memory_stats(dev)
+        fg = fast_compile(friends_model(n_people, n_obs), dev)
+        t_compile = time.perf_counter() - t0
+        plan_b = color_plan_bytes(fg)
+        cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.1)
+        keep = {}
+
+        def run(seed):
+            keep["m"], _, _ = hmc.run_hmc(
+                fg, torch.Generator(dev).manual_seed(seed), cfg, n_chains=C,
+                n_warmup=0, n_samples=1, collect="moments", stream_diag=False)
+            float(keep["m"]["mean"][0])
+
+        dt, spread = timed_runs(run)
+        peak = torch.cuda.max_memory_allocated(dev)
+        rates[f"pod{n_people}"] = C / dt
+        msg = pooled_cancer(fg, keep["m"]["disc_probs"].cpu().numpy(), n_obs, C)
+        log(f"[pod_scale] pod{n_people}: fast_compile {t_compile:.2f} s, "
+            f"{fg.n_cont} + {fg.n_disc} latents, {fg.n_colors} colours "
+            f"({sum(g['n_colors'] for g in plan_b['per_group'])} in "
+            f"{plan_b['n_groups']} plan groups), color_plan_bytes "
+            f"{plan_b['total_bytes']}; {C} chains x 1 sample a call: "
+            f"pod{n_people}_gibbs_chain_samples_per_s {C / dt:.6g} (rep spread "
+            f"{spread:.3f}) on {smi}; peak device memory "
+            f"{peak / 2**30:.3f} GiB; pooled cancer marginal: "
+            + cancer_line(msg) + f"; {time.perf_counter() - t0:.1f} s")
+        if not all(z < 5 for _, _, z in msg):
+            raise AssertionError(f"pod{n_people}: cancer marginals off the "
+                                 "closed forms")
+        del fg, keep
+    return rates
+
+
+def grid_lu(fg):
+    """A sparse LU of a compiled grid's ELL information form (scipy) →
+    ``(lu, h)`` in the compiled latent order."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    n = fg.n_cont
+    diag_np = fg.quad_diag.cpu().numpy().astype(np.float64)
+    col = fg.quad_ell_col.cpu().numpy()
+    w = fg.quad_ell_w.cpu().numpy().astype(np.float64)
+    Jsp = sp.csc_matrix((np.concatenate([diag_np, w.ravel()]),
+                         (np.concatenate([np.arange(n), np.repeat(np.arange(n),
+                                                                  col.shape[1])]),
+                          np.concatenate([np.arange(n), col.ravel()]))),
+                        shape=(n, n))
+    return spla.splu(Jsp), fg.quad_h.cpu().numpy().astype(np.float64)
+
+
+def phase_bp(dev, smi, rows=128, n_lifted=320):
+    """The BP and MAP engines on the card: GaBP on the 10×10 grid
+    (BASELINE config 2) and the 128×128 grid against the dense solve and a
+    sparse LU; LBP and EPBP on hybrid_chain (marginals and belief(x)
+    against exact enumeration), EPBP on the 10×10 grid; lifted LBP on the
+    320-person flagship against the closed forms; MaxWalkSAT against exact
+    modes."""
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import gabp
+    from lhvi_tpu_torch.engines.epbp import EPBP, EPBPConfig
+    from lhvi_tpu_torch.engines.lbp import HybridLBP
+    from lhvi_tpu_torch.engines.map_search import HybridMaxWalkSAT, MWSConfig
+    from lhvi_tpu_torch.lift import compile_lifted
+    from lhvi_tpu_torch.models.toy import gaussian_grid, hybrid_chain
+    from lhvi_tpu_torch.utils.oracle import ExactPosterior
+
+    rates = {}
+    # GaBP (tests/test_gabp.py:31-37: means within 1e-3)
+    for name, g_rows, seed, ev in (("gabp10x10", 10, 0, 0.2),
+                                   (f"gabp{rows}", rows, 1, 0.05)):
+        t0 = time.perf_counter()
+        g, _ = gaussian_grid(g_rows, g_rows, seed=seed, evidence_frac=ev)
+        eng = gabp.GaBP(g, dev)
+        t_build = time.perf_counter() - t0
+        fg = (compile_graph(g, dev) if g_rows == 10 else
+              compile_graph(g, dev, quad_max_n=min(4096, g_rows * g_rows // 4)))
+        if fg.quad_sparse:
+            lu, h = grid_lu(fg)
+            exact = lu.solve(h)
+        else:
+            J = fg.meta.np_global["quad_J"].astype(np.float64)
+            exact = np.linalg.solve(J, fg.meta.np_global["quad_h"])
+        order = np.array([fg.meta.loc(rv)[1] for rv in eng.latents])
+        iters = 0
+        for iters in (25, 50, 100, 200, 400, 1000):
+            eng.run(iters=iters, warn_tol=np.inf)
+            if eng.last_delta_ < 1e-5:
+                break
+        dt, _ = timed_runs(lambda _: eng.run(iters=iters, warn_tol=np.inf))
+        err = float(np.abs(eng.mean_ - exact[order]).max())
+        rates[name] = iters / dt
+        log(f"[bp] {name}: {len(eng.latents)} latents, {eng.n_edges} directed "
+            f"edges, host build {t_build:.2f} s; {iters} sweeps to last delta "
+            f"{eng.last_delta_:.2e} (< 1e-5): {iters / dt:.6g} sweeps/s on "
+            f"{smi}; means against the "
+            f"{'sparse LU' if fg.quad_sparse else 'dense solve'}: max err "
+            f"{err:.3e} (bound 1e-3)")
+        if not (eng.last_delta_ < 1e-5 and err < 1e-3):
+            raise AssertionError(f"{name} off the exact means")
+
+    # hybrid_chain: LBP and EPBP against exact enumeration, belief(x)
+    xq = np.array([-2.831, -1.117, -0.303, 0.517, 1.293, 2.719])
+    g, (d, x1, x2) = hybrid_chain()
+    exact = ExactPosterior(g, cont_grid=161)
+    fgh = compile_graph(g, dev)
+    eng = EPBP(fgh, EPBPConfig(n_particles=128, n_iters=40))
+    dt, _ = timed_runs(lambda _: eng.run(torch.Generator(dev).manual_seed(1)))
+    rates["epbp_hybrid"] = 40 / dt
+    errs = (float(np.abs(eng.disc_marginal(d) - exact.disc_marginal(d)).max()),
+            max(abs(eng.mean(x) - exact.mean(x)) for x in (x1, x2)),
+            abs(eng.var(x2) - exact.var(x2)) / exact.var(x2),
+            max(float(np.abs(eng.belief(xq, x) - exact.density(xq, x)).max())
+                for x in (x1, x2)))
+    log(f"[bp] epbp_hybrid: P = 128, 40 iterations: {40 / dt:.6g} "
+        f"iterations/s on {smi}; P(d) err {errs[0]:.4f} (< 0.08), mean err "
+        f"{errs[1]:.4f} (< 0.22), var(x2) rel err {errs[2]:.4f} (< 0.4), "
+        f"belief(x) err {errs[3]:.4f} (< 0.09)")
+    if not (errs[0] < 0.08 and errs[1] < 0.22 and errs[2] < 0.4
+            and errs[3] < 0.09):
+        raise AssertionError("EPBP on hybrid_chain off the exact posterior")
+    for x in (x1, x2):
+        x.domain.integral_points = np.linspace(-6, 6, 64)
+    exact = ExactPosterior(g, cont_grid=161)
+    eng = HybridLBP(compile_graph(g, dev))
+    dt, _ = timed_runs(lambda _: eng.run(n_iters=30))
+    rates["lbp_hybrid"] = 30 / dt
+    errs = (float(np.abs(eng.disc_marginal(d) - exact.disc_marginal(d)).max()),
+            max(abs(eng.mean(x) - exact.mean(x)) for x in (x1, x2)),
+            max(float(np.abs(eng.belief(xq, x) - exact.density(xq, x)).max())
+                for x in (x1, x2)))
+    log(f"[bp] lbp_hybrid: 64 integral points, 30 iterations: "
+        f"{30 / dt:.6g} iterations/s on {smi}; tables {eng.table_bytes} B; "
+        f"P(d) err {errs[0]:.4f} (< 0.05), mean err {errs[1]:.4f} (< 0.1), "
+        f"belief(x) err {errs[2]:.4f} (< 0.06)")
+    if not (errs[0] < 0.05 and errs[1] < 0.1 and errs[2] < 0.06):
+        raise AssertionError("LBP on hybrid_chain off the exact posterior")
+
+    # epbp10x10: tests/test_epbp.py:28-45's thresholds against the dense solve
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    dense, latents = gabp.dense_gaussian_marginals(g)
+    eng = EPBP(compile_graph(g, dev), EPBPConfig(n_particles=128, n_iters=50))
+    dt, _ = timed_runs(lambda _: eng.run(torch.Generator(dev).manual_seed(0)))
+    rates["epbp10x10"] = 50 / dt
+    e_m = max(abs(eng.mean(rv) - dense[id(rv)][0]) for rv in latents)
+    e_v = max(abs(eng.var(rv) - dense[id(rv)][1]) / dense[id(rv)][1]
+              for rv in latents)
+    log(f"[bp] epbp10x10: {len(latents)} latents, P = 128, 50 iterations: "
+        f"{50 / dt:.6g} iterations/s on {smi}; max mean err {e_m:.4f} (< 0.25), "
+        f"max var rel err {e_v:.4f} (< 0.4)")
+    if not (e_m < 0.25 and e_v < 0.4):
+        raise AssertionError("EPBP on the 10x10 grid off the dense solve")
+
+    # lbp_lifted320: lifted LBP on vi_lifted320's model, the closed forms
+    t0 = time.perf_counter()
+    n_obs = n_lifted // 10
+    g, index = friends_model(n_lifted, n_obs).ground()
+    fg_l = compile_lifted(g, dev)
+    t_lift = time.perf_counter() - t0
+    eng = HybridLBP(fg_l)
+    dt, _ = timed_runs(lambda _: eng.run(n_iters=30))
+    rates[f"lbp_lifted{n_lifted}"] = 30 / dt
+    err = cancer_errors(lambda k: eng.disc_marginal(index[k]), n_obs)
+    log(f"[bp] lbp_lifted{n_lifted}: {fg_l.n_cont} + {fg_l.n_disc} lifted latents, "
+        f"compile_lifted {t_lift:.2f} s, S = {eng.S}, tables "
+        f"{eng.table_bytes} B ({[tuple(t.log_phi.shape) for t in eng.tables]}); "
+        f"30 iterations: {30 / dt:.6g} iterations/s on {smi}; cancer of the "
+        f"observed smokers / non-smokers: max err {err[1]:.3e} / {err[0]:.3e} "
+        f"from {SIGMA_1_2:.4f} / 0.5 (bound 0.01)")
+    if not max(err) < 0.01:
+        raise AssertionError(f"lbp_lifted320 off the closed forms ({err})")
+
+    # mws: tests/test_nuts_map.py:44-70, and the 10x10 grid's mode
+    g, (d, x1, x2) = hybrid_chain()
+    want = ExactPosterior(g, cont_grid=201).map_state()
+    eng = HybridMaxWalkSAT(compile_graph(g, dev),
+                           MWSConfig(n_walkers=64, n_steps=400, grad_step=0.1))
+    dt, _ = timed_runs(lambda _: eng.run(torch.Generator(dev).manual_seed(1)))
+    rates["mws"] = 400 / dt
+    e_h = max(abs(eng.map(x1) - want[x1]), abs(eng.map(x2) - want[x2]))
+    ok = eng.map(d) == want[d] and e_h < 0.15
+    from lhvi_tpu_torch import F, Domain, Graph, RV
+    from lhvi_tpu_torch.potentials import GaussianPotential
+
+    dom = Domain([-20, 20], continuous=True)
+    a, b = RV(dom, name="a"), RV(dom, name="b")
+    g2 = Graph([a, b], [F(GaussianPotential([1.5, -0.5],
+                                            [[1.0, 0.4], [0.4, 1.0]]), [a, b])])
+    eng2 = HybridMaxWalkSAT(compile_graph(g2, dev),
+                            MWSConfig(n_walkers=32, n_steps=200)).run(
+        torch.Generator(dev).manual_seed(0))
+    e_g = max(abs(eng2.map(a) - 1.5), abs(eng2.map(b) + 0.5))
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg = compile_graph(g, dev)
+    J = fg.meta.np_global["quad_J"].astype(np.float64)
+    mode = np.linalg.solve(J, fg.meta.np_global["quad_h"].astype(np.float64))
+    lp_mode = float(fg.log_prob(torch.tensor(mode, dtype=torch.float32,
+                                             device=dev),
+                                torch.zeros(0, dtype=torch.int64, device=dev)))
+    eng3 = HybridMaxWalkSAT(fg, MWSConfig()).run(
+        torch.Generator(dev).manual_seed(2))
+    excess = (eng3.energy - lp_mode) / abs(lp_mode)
+    log(f"[bp] mws: hybrid_chain, 64 walkers x 400 steps: {400 / dt:.6g} "
+        f"steps/s on {smi}; d {eng.map(d)} (exact {want[d]}), continuous "
+        f"err {e_h:.4f} (< 0.15); Gaussian mode err {e_g:.4f} (< 0.1); 10x10 "
+        f"grid: best log p {eng3.energy:.6f} against {lp_mode:.6f} at the "
+        f"dense-solve mode (excess {excess:.3e} of |log p|; bound 1e-5)")
+    if not (ok and e_g < 0.1 and excess <= 1e-5):
+        raise AssertionError("MaxWalkSAT off the exact modes")
+    return rates
 
 
 def check_moments(name, moments, diag, mean_x, spot, var_x):
@@ -1899,7 +2274,36 @@ def profile_cells(dev, smi):
         run, _ = vi_fit_run(vi, fg, cfg, dev)
         profile_window(f"{label}, {cfg.n_iters} Adam steps",
                        lambda: run(0), cfg.n_iters, "step", smi)
+    profile_pod_cells(dev, smi)
     step_costs(dev, smi)
+
+
+def profile_pod_cells(dev, smi, cells=((320, 128, 8, False),
+                                       (320, 128, 8, True),
+                                       (1000, 8, 1, False))):
+    """``--profile`` (alone: ``--profile pod``): the pod cells as the
+    main path runs them, mode swap off and on (``pod320``,
+    ``pod320_modeswap`` every transition: 128 chains × 8 samples) and
+    ``pod1000`` (8 chains, one sample), as PERF.md §5 reads them."""
+    import torch
+
+    from lhvi_tpu_torch.engines import hmc
+    from lhvi_tpu_torch.relational.fast import fast_compile
+
+    for n_people, C, S, swap in cells:
+        fg = fast_compile(friends_model(n_people, n_people // 10), dev)
+        cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.1, mode_swap=swap)
+
+        def run():
+            m, _, _ = hmc.run_hmc(fg, torch.Generator(dev).manual_seed(0),
+                                  cfg, n_chains=C, n_warmup=0, n_samples=S,
+                                  collect="moments", stream_diag=False)
+            float(m["mean"][0])
+
+        profile_window(f"pod{n_people}{'_modeswap' if swap else ''}, {C} "
+                       f"chains x {S} samples, {fg.n_colors} colours", run, S,
+                       "transition", smi)
+        del fg
 
 
 def step_costs(dev, smi):
@@ -2021,17 +2425,24 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("[build] " + line.strip())
     if "--profile" in sys.argv[1:]:
-        profile_cells(dev, smi)
+        if sys.argv[-1] == "pod":
+            profile_pod_cells(dev, smi)
+        else:
+            profile_cells(dev, smi)
         return 0
+    only = None
+    if "--phase" in sys.argv[1:]:
+        only = sys.argv[sys.argv.index("--phase") + 1].split(",")
 
-    t0 = time.perf_counter()
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
-    k3 = phase_k3(dev)
-    k4 = phase_k4(dev)
-    k5 = phase_k5(dev)
-    k6 = phase_k6(dev)
-    log(f"[time] kernel phases {time.perf_counter() - t0:.1f} s")
+    if only is None:
+        t0 = time.perf_counter()
+        k1 = phase_k1(dev)
+        k2 = phase_k2(dev)
+        k3 = phase_k3(dev)
+        k4 = phase_k4(dev)
+        k5 = phase_k5(dev)
+        k6 = phase_k6(dev)
+        log(f"[time] kernel phases {time.perf_counter() - t0:.1f} s")
 
     counters = {"quad_leapfrog": quad_leapfrog, "dia_proposal": dia_hmc_proposal,
                 "nuts_traj": nuts_trajectory, "weights": weight_pipeline,
@@ -2051,9 +2462,16 @@ def main() -> int:
              ("dia_leapfrog",)),
             ("hybrid", lambda: phase_hybrid(dev, smi, keep["robot_hmc"]),
              ("weights",)),
-            # VI and the pod cell reach no TPU kernel in the reference
+            # VI, the pod cells, the mode-swap move and the BP/MAP engines
+            # reach no TPU kernel in the reference (SMC with the move
+            # launches K4, held on the smc path)
             ("vi", lambda: keep.update(phase_vi(dev, smi)), ()),
-            ("pod", lambda: keep.update(phase_pod(dev, smi)), ())):
+            ("pod", lambda: keep.update(phase_pod(dev, smi)), ()),
+            ("modeswap", lambda: keep.update(phase_modeswap(dev, smi)), ()),
+            ("pod_scale", lambda: keep.update(phase_pod_scale(dev, smi)), ()),
+            ("bp", lambda: keep.update(phase_bp(dev, smi)), ())):
+        if only is not None and path not in only:
+            continue
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
@@ -2065,6 +2483,8 @@ def main() -> int:
             if seen[k] <= 0:
                 raise AssertionError(f"{k} never ran on the {path} path")
             launches.setdefault(k, seen[k])
+    if only is not None:  # a rehearsal of some paths: no result lines
+        return 0
 
     kernels = [
         {"name": "quad_leapfrog", "route": "cuda",
@@ -2093,7 +2513,11 @@ def main() -> int:
          "launches": launches["dia_leapfrog"], **k6},
     ]
     for k in ("vi_steps_per_s", "vi_lifted_steps_per_s",
-              "pod_gibbs_chain_samples_per_s"):
+              "pod_gibbs_chain_samples_per_s",
+              "pod320_modeswap1_chain_samples_per_s",
+              "pod320_modeswap4_chain_samples_per_s", "pod600", "pod1000",
+              "gabp10x10", "gabp128", "lbp_hybrid", "epbp_hybrid",
+              "epbp10x10", "lbp_lifted320", "mws"):
         log(f"[rates] {k} {keep[k]:.6g} on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

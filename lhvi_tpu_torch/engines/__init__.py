@@ -1,5 +1,9 @@
-"""Inference engines of the PyTorch port: ``hmc`` (HMC-within-Gibbs),
-``nuts`` (iterative multinomial NUTS), ``smc`` (annealed SMC) and ``vi``
-(mixture-of-Gaussian variational inference, lifted and coarse-to-fine)."""
+"""Inference engines of the PyTorch port: ``hmc`` (HMC-within-Gibbs, with
+the ``modeswap`` move), ``nuts`` (iterative multinomial NUTS), ``smc``
+(annealed SMC), ``vi`` (mixture-of-Gaussian variational inference, lifted
+and coarse-to-fine), ``gabp`` (Gaussian BP), ``lbp`` (hybrid loopy BP),
+``epbp`` (expectation particle BP) and ``map_search`` (hybrid
+MaxWalkSAT)."""
 
-__all__ = ["hmc", "nuts", "smc", "vi"]
+__all__ = ["epbp", "gabp", "hmc", "lbp", "map_search", "modeswap", "nuts",
+           "smc", "vi"]

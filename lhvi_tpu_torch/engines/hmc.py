@@ -26,8 +26,10 @@ stays a 0-d device tensor that the kernels read through a pointer, and
 K2's per-proposal momentum stream is keyed on the host by the generator's
 seed and its Philox offset, which each proposal advances.
 
-Not in this slice: the mode-swap move (raises ``NotImplementedError``
-naming its slice).
+``mode_swap=True`` adds the collapsed orbit-flip move
+(``engines/modeswap.py``) after the Gibbs stage; its plan is built on the
+host at the run's start, and ``mode_swap_every > 1`` gates the move on a
+host generator seeded once from the run's generator.
 """
 
 from __future__ import annotations
@@ -63,7 +65,10 @@ class HMCConfig:
     # small static set; False keeps the ELL gather·FMA path
     dia_kernel: bool = True
     # orbit-level mode-swap MH move after each Gibbs stage
+    # (engines/modeswap.py); the plan is built on demand
     mode_swap: bool = False
+    # apply the move with probability 1/every per transition (a
+    # random-scan mixture: exact)
     mode_swap_every: int = 1
 
 
@@ -78,13 +83,10 @@ class HMCState(NamedTuple):
     welford_m2: torch.Tensor
     welford_n: torch.Tensor
     inv_mass: torch.Tensor  # [n_cont] diagonal
-
-
-def _check_supported(fg: CompiledFG, cfg: HMCConfig):
-    if cfg.mode_swap:
-        raise NotImplementedError(
-            "mode_swap arrives with Slice 7, the pod flagship "
-            "(ROADMAP Queue 1 item 9)")
+    # the mode-swap move's acceptance accumulators (0-d; stay 0 while the
+    # move is off)
+    ms_acc_sum: torch.Tensor
+    ms_acc_n: torch.Tensor
 
 
 # ---- chromatic Gibbs over the discrete latents ---------------------------
@@ -228,21 +230,27 @@ def gibbs_sweep_planned(fg: CompiledFG, gen, xc, xd, beta=1.0):
     return xd[:, :-1]
 
 
-def planned_logits(fg: CompiledFG, xc, xd):
+def planned_logits(fg: CompiledFG, xc, xd, cells=None):
     """``disc_logits``-shaped logits ``[C, n_disc, V]`` (or ``[n_disc, V]``
     for one state) assembled from the color plan at a FIXED state: the
-    exact-identity hook that proves the plan matches ``disc_logits``."""
+    exact-identity hook that proves the plan matches ``disc_logits``.
+    ``cells`` (``(group, colour)`` pairs of the plan) restricts the pass
+    to those colour classes; the other variables' valid entries stay 0."""
     if xc.dim() == 1:
-        return planned_logits(fg, xc[None], xd[None])[0]
+        return planned_logits(fg, xc[None], xd[None], cells)[0]
     V, C = fg.max_v, xc.shape[0]
     dev = xc.device
     out = torch.zeros((C, fg.n_disc + 1, V), device=dev)
     xv = (None if fg.color_plan.values_are_indices
           else state_values(fg, xd))
-    for grp in fg.color_plan.groups:
-        for j in range(grp.n_colors):
-            out[:, grp.vars_[j]] = _color_class_logits(
-                fg, grp, _color_tabs(grp, j), xc, xd, xv)
+    groups = fg.color_plan.groups
+    if cells is None:
+        cells = [(gi, j) for gi, grp in enumerate(groups)
+                 for j in range(grp.n_colors)]
+    for gi, j in cells:
+        grp = groups[gi]
+        out[:, grp.vars_[j]] = _color_class_logits(
+            fg, grp, _color_tabs(grp, j), xc, xd, xv)
     valid = torch.arange(V, device=dev)[None, :] < fg.disc_sizes[:, None]
     return torch.where(valid[None], out[:, : fg.n_disc],
                        torch.full((), _NEG_BIG, device=dev))
@@ -313,6 +321,9 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd, eps,
     Purely-discrete buckets are constant in xc at the chain's fixed xd and
     drop out of the Hamiltonian exactly."""
     C = xc.shape[0]
+    if fg.n_cont == 0:
+        # nothing moves; the reference's empty trajectory accepts
+        return xc, torch.ones((C,), device=xc.device)
     if not fg.cont_pure_quad:
         from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
 
@@ -346,11 +357,26 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd, eps,
     return _mh_accept(xc, x1, log_acc, u)
 
 
+def mode_swap_stage(fg: CompiledFG, cfg, state: HMCState, gen, gate, xd):
+    """The mode-swap move after the Gibbs stage, where it is on and the
+    graph has a plan → ``(state with its accumulators, xd)``."""
+    if not (cfg.mode_swap and fg.mode_swap_plan is not None):
+        return state, xd
+    from lhvi_tpu_torch.engines.modeswap import maybe_mode_swap
+
+    xd, acc, n_inc = maybe_mode_swap(fg, cfg, gen, gate, state.xc, xd)
+    return state._replace(ms_acc_sum=state.ms_acc_sum + acc,
+                          ms_acc_n=state.ms_acc_n + n_inc), xd
+
+
 def hmc_transition(fg: CompiledFG, cfg: HMCConfig, state: HMCState, gen,
-                   adapt: bool):
+                   adapt: bool, gate=None):
     """One full HMC-within-Gibbs transition for all chains: the Gibbs
-    sweep(s), then one HMC proposal at the new discrete state."""
+    sweep(s), the mode-swap move where it is on (``gate``: the host
+    generator of ``modeswap.maybe_mode_swap``), then one HMC proposal at
+    the new discrete state."""
     xd = sweep_all(fg, cfg, gen, state.xc, state.xd)
+    state, xd = mode_swap_stage(fg, cfg, state, gen, gate, xd)
     eps = torch.exp(state.log_eps)
     xc, acc = _hmc_step_batched(fg, cfg, gen, state.xc, xd, eps,
                                 state.inv_mass)
@@ -380,6 +406,7 @@ def init_hmc_state(fg: CompiledFG, gen, cfg: HMCConfig,
         welford_mean=zeros, welford_m2=zeros.clone(),
         welford_n=_scalar(0.0, dev),
         inv_mass=torch.ones(fg.n_cont, device=dev),
+        ms_acc_sum=_scalar(0.0, dev), ms_acc_n=_scalar(0.0, dev),
     )
 
 
@@ -706,6 +733,44 @@ class _MomentStream:
         return moments, diag
 
 
+def _ensure_mode_swap_plan(fg: CompiledFG, cfg):
+    """Attach the mode-swap plan when the move is on (host-side, once per
+    graph: ``modeswap.plan_for`` caches it). Where no discrete class
+    qualifies, warn and run plain chromatic Gibbs."""
+    if not getattr(cfg, "mode_swap", False) or fg.mode_swap_plan is not None:
+        return fg, cfg
+    from lhvi_tpu_torch.engines.modeswap import plan_for
+
+    plan = plan_for(fg)
+    if plan is None:
+        import warnings
+
+        warnings.warn(
+            "mode_swap=True but color refinement found no discrete class "
+            "with >=2 members — the move is a no-op on this model; "
+            "running plain chromatic Gibbs.", stacklevel=3)
+        return fg, dataclasses.replace(cfg, mode_swap=False)
+    return dataclasses.replace(fg, mode_swap_plan=plan), cfg
+
+
+def _gate(cfg, gen):
+    """The mode-swap gate's host generator, where the move is gated."""
+    if not (cfg.mode_swap and cfg.mode_swap_every > 1):
+        return None
+    from lhvi_tpu_torch.engines.modeswap import gate_generator
+
+    return gate_generator(gen)
+
+
+def _ms_diag(cfg, state: HMCState) -> dict:
+    """``mode_swap_accept``: the move's acceptance per application over
+    the sampling window, where the move is on."""
+    if not cfg.mode_swap:
+        return {}
+    return {"mode_swap_accept":
+            state.ms_acc_sum / torch.clamp(state.ms_acc_n, min=1.0)}
+
+
 def run_hmc(
     fg: CompiledFG,
     gen: torch.Generator,
@@ -732,18 +797,24 @@ def run_hmc(
     ``disc_diag_cap`` (moments mode, with ``stream_diag``): how many
     discrete latents carry streamed split-R̂ over their value traces
     (``diag["rhat_disc"]``, ``diag["disc_diag_idx"]`` naming them; see
-    ``disc_diag_select``); 0 disables it.
+    ``disc_diag_select``); 0 disables it. With ``cfg.mode_swap``,
+    ``diag`` also holds ``mode_swap_accept`` (per application, over the
+    sampling window).
     """
     if collect not in ("samples", "moments"):
         raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
-    _check_supported(fg, cfg)
+    fg, cfg = _ensure_mode_swap_plan(fg, cfg)
     dev = fg.device
     state = init_hmc_state(fg, gen, cfg, n_chains)
+    gate = _gate(cfg, gen)
 
     def trans(s, adapt):
-        return hmc_transition(fg, cfg, s, gen, adapt)
+        return hmc_transition(fg, cfg, s, gen, adapt, gate)
 
     state = run_warmup(fg, cfg, state, n_warmup, trans)
+    # the move's acceptance is reported for the sampling window only
+    state = state._replace(ms_acc_sum=_scalar(0.0, dev),
+                           ms_acc_n=_scalar(0.0, dev))
 
     def sample_step(state):
         # as the reference's fori_loop carry: the block reports the LAST
@@ -765,6 +836,7 @@ def run_hmc(
             "accept_rate": acc_total / max(n_samples, 1),
             "step_size": torch.exp(state.log_eps),
             "inv_mass": state.inv_mass,
+            **_ms_diag(cfg, state),
             **stream,
         }
         return moments, None, diag
@@ -779,6 +851,7 @@ def run_hmc(
         "accept_rate": acc_total / max(n_samples, 1),
         "step_size": torch.exp(state.log_eps),
         "inv_mass": state.inv_mass,
+        **_ms_diag(cfg, state),
     }
     if not s_xc:
         return (torch.zeros((0, n_chains, fg.n_cont), device=dev),

@@ -20,9 +20,8 @@ move by the chromatic Gibbs sweeps of ``engines.hmc`` before each
 transition (NUTS-within-Gibbs).
 
 Same contract as ``hmc.run_hmc`` (``collect="moments"|"samples"``,
-``thin``, ``stream_diag``, ``disc_diag_cap``). Not in this slice: the
-mode-swap move (raises ``NotImplementedError`` naming its slice); chain
-sharding is Slice 10's.
+``thin``, ``stream_diag``, ``disc_diag_cap``, ``mode_swap`` with
+``diag["mode_swap_accept"]``). Chain sharding is Slice 10's.
 """
 
 from __future__ import annotations
@@ -69,13 +68,6 @@ class NUTSConfig:
             mode_swap=self.mode_swap,
             mode_swap_every=self.mode_swap_every,
         )
-
-
-def _check_supported(cfg: NUTSConfig):
-    if cfg.mode_swap:
-        raise NotImplementedError(
-            "mode_swap arrives with Slice 7, the pod flagship "
-            "(ROADMAP Queue 1 item 9)")
 
 
 def _popcount(n):
@@ -314,11 +306,14 @@ def _nuts_sweep_batched(fg: CompiledFG, gen, xc, xd, eps, inv_mass,
 
 
 def nuts_transition(fg: CompiledFG, cfg: NUTSConfig, state: _hmc.HMCState,
-                    gen, adapt: bool):
-    """One NUTS-within-Gibbs transition for all chains. Returns
-    ``(state, (acc [C], depth [C], div [C]))``."""
+                    gen, adapt: bool, gate=None):
+    """One NUTS-within-Gibbs transition for all chains (the mode-swap move
+    after the Gibbs stage where it is on; ``gate`` as in
+    ``hmc.hmc_transition``). Returns ``(state, (acc [C], depth [C],
+    div [C]))``."""
     hcfg = cfg.to_hmc()
     xd = _hmc.sweep_all(fg, hcfg, gen, state.xc, state.xd)
+    state, xd = _hmc.mode_swap_stage(fg, cfg, state, gen, gate, xd)
     if fg.n_cont == 0:
         C = state.xc.shape[0]
         dev = state.xc.device
@@ -362,16 +357,19 @@ def run_nuts(
     """
     if collect not in ("samples", "moments"):
         raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
-    _check_supported(cfg)
+    fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
     dev = fg.device
     hcfg = cfg.to_hmc()
     state = _hmc.init_hmc_state(fg, gen, hcfg, n_chains)
+    gate = _hmc._gate(cfg, gen)
 
     def transition(s, adapt):
-        return nuts_transition(fg, cfg, s, gen, adapt)
+        return nuts_transition(fg, cfg, s, gen, adapt, gate)
 
     state = _hmc.run_warmup(fg, hcfg, state, n_warmup,
                             lambda s, adapt: (transition(s, adapt)[0], None))
+    state = state._replace(ms_acc_sum=torch.zeros((), device=dev),
+                           ms_acc_n=torch.zeros((), device=dev))
 
     def sample_step(state):
         for _ in range(thin):
@@ -394,6 +392,7 @@ def run_nuts(
             "divergence_rate": tot[2] / S,
             "step_size": torch.exp(state.log_eps),
             "inv_mass": state.inv_mass,
+            **_hmc._ms_diag(cfg, state),
         }
 
     if collect == "moments":

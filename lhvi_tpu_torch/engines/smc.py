@@ -19,14 +19,16 @@ the adaptive CESS-targeted one), with
   over the discrete latents (the conditionals' logits times β; uniform
   base over the discrete latents): through the color plan
   (``hmc.gibbs_sweep_planned``) where the model has one, else the
-  all-rows sweep (``hmc.gibbs_sweep``).
+  all-rows sweep (``hmc.gibbs_sweep``); with ``mode_swap`` the
+  collapsed orbit-flip move at β follows each sweep
+  (``engines/modeswap.py``).
 
 On the fixed schedule a temperature reads nothing back to the host. The
 adaptive schedule reads one flag per temperature (``β < 1``, the
 reference's ``lax.cond``) and stops the loop once β reaches 1.
 
-Not in this slice (each raises ``NotImplementedError`` naming its slice):
-``mode_swap`` and a sharded particle axis.
+Not in this slice: a sharded particle axis (raises
+``NotImplementedError`` naming its slice).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from lhvi_tpu_torch.engines.hmc import (
+    _ensure_mode_swap_plan,
     _to_numpy,
     gibbs_sweep,
     gibbs_sweep_planned,
@@ -80,11 +83,7 @@ class SMCState(NamedTuple):
     log_z: torch.Tensor  # 0-d running evidence estimate
 
 
-def _check_supported(cfg: SMCConfig, shard):
-    if cfg.mode_swap:
-        raise NotImplementedError(
-            "mode_swap arrives with Slice 7, the pod flagship "
-            "(ROADMAP Queue 1 item 9)")
+def _check_supported(shard):
     if shard is not None:
         raise NotImplementedError(
             "a sharded particle axis arrives with Slice 10, runtime and "
@@ -247,8 +246,9 @@ def move_quad_sparse(fg: CompiledFG, cfg: SMCConfig, gen, xc, beta, step):
 
 
 def _rejuvenate(fg: CompiledFG, cfg: SMCConfig, gen, xc, xd, beta, step):
-    """cfg.n_moves moves at β, each an HMC move of the continuous latents
-    and then a tempered Gibbs sweep of the discrete ones →
+    """cfg.n_moves moves at β, each an HMC move of the continuous latents,
+    then a tempered Gibbs sweep of the discrete ones and, with
+    ``cfg.mode_swap``, the mode-swap move at β →
     ``(xc, xd, mean acceptance over the moves)``."""
     accs = []
     for _ in range(cfg.n_moves):
@@ -264,6 +264,11 @@ def _rejuvenate(fg: CompiledFG, cfg: SMCConfig, gen, xc, xd, beta, step):
         sweep = (gibbs_sweep_planned if fg.color_plan is not None
                  else gibbs_sweep)
         xd = sweep(fg, gen, xc, xd, beta=beta)  # no-op without n_disc
+        if cfg.mode_swap and fg.mode_swap_plan is not None:
+            from lhvi_tpu_torch.engines.modeswap import mode_swap_sweep
+
+            xd, _ = mode_swap_sweep(fg, gen, xc, xd, fg.mode_swap_plan,
+                                    beta=beta)
         accs.append(torch.mean(ok.to(torch.float32)))
     return xc, xd, torch.mean(torch.stack(accs))
 
@@ -276,7 +281,8 @@ def run_smc(fg: CompiledFG, gen: torch.Generator,
 
     ``gen`` (a ``torch.Generator`` on ``fg.device``) drives every draw.
     """
-    _check_supported(cfg, shard)
+    _check_supported(shard)
+    fg, cfg = _ensure_mode_swap_plan(fg, cfg)
     N = cfg.n_particles
     dev = fg.device
     mid = 0.5 * (fg.cont_lo + fg.cont_hi)

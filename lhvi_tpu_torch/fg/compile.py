@@ -252,6 +252,10 @@ class CompiledFG:
     quad_dia_w: Any = None
     quad_dia_pos: Any = None
     quad_dia_inv: Any = None
+    # the collapsed orbit-flip move's plan (engines/modeswap.py): built on
+    # demand by ``modeswap.plan_for`` and attached with
+    # ``dataclasses.replace`` (ModeSwapPlan | None)
+    mode_swap_plan: Any = None
     # VI's per-bucket quadrature plans, keyed by n_quad: built on the first
     # ELBO and kept on the device (engines/vi.py::_vi_plans)
     vi_plans: Dict[int, Any] = dataclasses.field(default_factory=dict,
@@ -290,6 +294,14 @@ class CompiledFG:
     def cont_bucket_idx(self) -> Tuple[int, ...]:
         """Surviving buckets whose kernels actually read ``xc``."""
         return tuple(i for i in self.lp_bucket_idx if self.buckets[i].ac > 0)
+
+    @property
+    def disc_bucket_idx(self) -> Tuple[int, ...]:
+        """Surviving buckets whose kernels actually read ``xd``: the
+        candidates of the mode-swap plan's direct term (fused and
+        continuous-only buckets are constant in ``xd`` and cancel in its
+        Metropolis ratios)."""
+        return tuple(i for i in self.lp_bucket_idx if self.buckets[i].ad > 0)
 
     def _bucket_logp_batched(self, i: int, xc, xd) -> torch.Tensor:
         b = self.buckets[i]
@@ -810,6 +822,68 @@ def _group_gather(all_vars: List[np.ndarray], all_rows: List[np.ndarray],
         idx_arrays.append(_tensor(idx, device))
     return GibbsGather(degrees=tuple(degrees), idx=tuple(idx_arrays),
                        pos_of_var=_tensor(pos_of_var, device))
+
+
+def build_edge_gather(np_buckets: List[Dict[str, np.ndarray]],
+                      patterns: List[Tuple[bool, ...]], n_cont: int,
+                      n_disc: int, device) -> GibbsGather:
+    """Gather plan over ALL latent (bucket, slot, factor) incidences with
+    unified var ids (continuous first, then discrete). Flat row order:
+    bucket-major, slot-major (full pattern order), factor-minor, matching
+    ``[n_f, a, S].transpose(0, 1).reshape(a·n_f, S)`` per bucket. The
+    message-passing engines assemble beliefs through it, each variable's
+    sum in a fixed order on every device."""
+    all_vars: List[np.ndarray] = []
+    all_rows: List[np.ndarray] = []
+    off = 0
+    for np_b, pattern in zip(np_buckets, patterns):
+        n_f = np_b["scale"].shape[0]
+        ci = di = 0
+        for is_cont in pattern:
+            if is_cont:
+                mask = np_b["cont_mask"][:, ci] > 0
+                gv = np_b["cont_idx"][:, ci]
+                ci += 1
+            else:
+                mask = np_b["disc_mask"][:, di] > 0
+                gv = n_cont + np_b["disc_idx"][:, di]
+                di += 1
+            all_rows.append((off + np.nonzero(mask)[0]).astype(np.int64))
+            all_vars.append(gv[mask].astype(np.int64))
+            off += n_f
+    return _group_gather(all_vars, all_rows, off, n_cont + n_disc, device)
+
+
+def color_plan_bytes(fg: CompiledFG) -> dict:
+    """Device memory of the compiled Gibbs colour plan: the bytes of the
+    port's own tensors (its integer tables are int64, so the count is
+    larger than the reference's int32 one).
+
+    Returns ``{'total_bytes', 'per_group': [{'n_colors', 'n_vars',
+    'bytes', 'n_elements'}], 'n_groups'}``.
+    """
+    if fg.color_plan is None:
+        return {"total_bytes": 0, "per_group": [], "n_groups": 0}
+
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from leaves(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                yield from leaves(v)
+
+    per_group = []
+    for grp in fg.color_plan.groups:
+        ts = list(leaves((grp.vars_, grp.sizes, grp.vals_, grp.bucket_tabs)))
+        per_group.append({
+            "n_colors": grp.n_colors, "n_vars": grp.n_vars,
+            "bytes": int(sum(t.numel() * t.element_size() for t in ts)),
+            "n_elements": int(sum(t.numel() for t in ts))})
+    return {"total_bytes": sum(g["bytes"] for g in per_group),
+            "per_group": per_group, "n_groups": len(per_group)}
 
 
 def _build_color_plan(np_buckets: List[Dict[str, np.ndarray]], n_disc: int,

@@ -78,9 +78,9 @@ def hmc_state_from_numpy(state_dict: dict, device) -> HMCState:
 
     Reads the fields the port's state has: continuous positions ``xc``,
     the discrete index state ``xd`` (int64, the port's index type),
-    dual-averaging and Welford accumulators and the inverse mass. The
-    reference's mode-swap accumulators have no counterpart in this slice
-    and are not read. Floats become f32 and integers int64.
+    dual-averaging and Welford accumulators, the inverse mass and the
+    mode-swap acceptance accumulators. Floats become f32 and integers
+    int64.
     """
     missing = [k for k in HMCState._fields if k not in state_dict]
     if missing:
@@ -135,3 +135,30 @@ def vi_params_from_numpy(arrays: dict, device) -> VIParams:
     return VIParams(*(
         _tensor(np.asarray(arrays[k], np.float32), torch.device(device))
         for k in VIParams._fields))
+
+
+def lbp_msgs_from_numpy(msgs, device) -> tuple:
+    """The port's LBP message state (``HybridLBP.msgs``) from a reference
+    ``HybridLBP.msgs``: one f32 ``[n_f, a, S]`` tensor per bucket."""
+    return tuple(_tensor(np.asarray(m, np.float32), torch.device(device))
+                 for m in msgs)
+
+
+EPBP_STATE = ("q_mu", "q_var", "sup", "sup_grid", "lq", "msgs")
+
+
+def epbp_state_from_numpy(state: dict, device) -> dict:
+    """EPBP's final particle state from the reference's arrays (the keys
+    of ``EPBP_STATE``): the proposals ``q_mu``/``q_var``, the particle and
+    grid supports and their log-proposal (``sup``, ``sup_grid``, ``lq``)
+    as f32 tensors, and ``msgs`` as a tuple of f32 ``[n_f, a, W]``
+    tensors, one per bucket."""
+    missing = [k for k in EPBP_STATE if k not in state]
+    if missing:
+        raise KeyError(f"epbp_state_from_numpy: missing fields {missing}")
+    device = torch.device(device)
+    out = {k: _tensor(np.asarray(state[k], np.float32), device)
+           for k in EPBP_STATE[:-1]}
+    out["msgs"] = tuple(_tensor(np.asarray(m, np.float32), device)
+                        for m in state["msgs"])
+    return out

@@ -875,3 +875,93 @@ def test_vi_fit_memory_does_not_grow_with_steps(dev):
         torch.cuda.synchronize()
         peaks.append(torch.cuda.max_memory_allocated(dev) - base)
     assert peaks[2] - peaks[1] < 2**16, peaks
+
+
+def _pod16(device):
+    from lhvi_tpu_torch.models.relational import friends_smokers
+    from lhvi_tpu_torch.relational.fast import fast_compile
+
+    rg = friends_smokers(n_people=16, hybrid=True)
+    for i in range(4):
+        rg.observe("smokes", (f"p{i}",), i % 2)
+    return fast_compile(rg, device)
+
+
+def test_mode_swap_plan_on_the_card_equals_cpu(dev):
+    """The plan built on the card equals the CPU's table for table, and
+    the collapsed delta of one flip agrees within 1e-5 of the size of the
+    sums it is the difference of (f32 sums in another order)."""
+    from lhvi_tpu_torch.engines import modeswap
+
+    fgs = [_pod16(dev), _pod16("cpu")]
+    plans = [modeswap.build_mode_swap_plan(fg) for fg in fgs]
+    a, b = plans
+    assert (a.n_groups, a.vmax, a.has_f, a.direct_buckets, a.f_cells) == (
+        b.n_groups, b.vmax, b.has_f, b.direct_buckets, b.f_cells)
+    for x, y in [(a.vars_, b.vars_), (a.member, b.member),
+                 (a.f_mask, b.f_mask), *zip(a.w_direct, b.w_direct)]:
+        assert torch.equal(x.cpu(), y)
+    rng = np.random.default_rng(0)
+    xc = rng.normal(size=(64, fgs[1].n_cont)).astype(np.float32)
+    xd = rng.integers(0, 2, size=(64, fgs[1].n_disc))
+    xd_p = np.where(b.member[0].numpy()[None], 1 - xd, xd)
+    out = []
+    for fg, plan in zip(fgs, plans):
+        d = fg.device
+        out.append(modeswap.collapsed_delta(
+            fg, torch.tensor(xc, device=d), torch.tensor(xd, device=d),
+            torch.tensor(xd_p, device=d), plan, 0, 1.0)[0].cpu())
+    L = modeswap._tempered_logits(fgs[1], b, 0, torch.tensor(xc),
+                                  torch.tensor(xd), 1.0)
+    scale = float(torch.logsumexp(L, -1)[:, b.f_mask[0]].abs().sum(-1).max())
+    assert float((out[0] - out[1]).abs().max()) <= 1e-5 * (1.0 + scale)
+
+
+def test_gabp_and_lbp_on_the_card_equal_cpu(dev):
+    """GaBP on the 8×8 grid (the card's ``index_add_`` sums in another
+    order: means and variances within rtol 1e-5) and LBP on the hybrid
+    chain and the lifted 16-person flagship (beliefs within 1e-5 of the
+    largest magnitude)."""
+    from lhvi_tpu_torch.engines import gabp
+    from lhvi_tpu_torch.engines.lbp import HybridLBP
+    from lhvi_tpu_torch.lift import compile_lifted
+    from lhvi_tpu_torch.models.toy import hybrid_chain
+
+    g, _ = gaussian_grid(8, 8, seed=1, evidence_frac=0.1)
+    e_gpu, e_cpu = (gabp.GaBP(g, d).run(iters=80) for d in (dev, "cpu"))
+    np.testing.assert_allclose(e_gpu.mean_, e_cpu.mean_, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(e_gpu.var_, e_cpu.var_, rtol=1e-5, atol=1e-6)
+    from lhvi_tpu_torch.models.relational import friends_smokers
+
+    g, _ = hybrid_chain()
+    rg = friends_smokers(n_people=16, hybrid=True)
+    rg.observe("smokes", ("p0",), 1)
+    g16 = rg.ground()[0]
+    for build in (lambda d: lt.compile_graph(g, d),
+                  lambda d: compile_lifted(g16, d)):
+        b_gpu, b_cpu = (HybridLBP(build(d)).run(n_iters=30).beliefs_
+                        for d in (dev, "cpu"))
+        tol = 1e-5 * (1.0 + np.abs(b_cpu).max())
+        assert np.abs(b_gpu - b_cpu).max() <= tol
+
+
+def test_run_hmc_mode_swap_memory_does_not_grow(dev):
+    """``run_hmc`` with the move on keeps its accumulators in 0-d device
+    tensors and reads nothing back in a transition: its peak device
+    memory is the same at 10 and at 60 transitions."""
+    from lhvi_tpu_torch.engines import hmc
+
+    fg = _pod16(dev)
+    cfg = hmc.HMCConfig(n_leapfrog=4, mode_swap=True)
+    peaks = []
+    for n in (10, 10, 60):  # the first run builds the plan
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        m, _, diag = hmc.run_hmc(fg, torch.Generator(dev).manual_seed(0), cfg,
+                                 n_chains=64, n_warmup=0, n_samples=n,
+                                 collect="moments", stream_diag=False)
+        float(diag["mode_swap_accept"])
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(dev) - base)
+    assert peaks[2] - peaks[1] < 2**16, peaks

@@ -289,15 +289,18 @@ def test_accept_rate_under_thin_keeps_the_last_transition():
 
 
 def test_out_of_slice_paths_raise():
-    """The mode-swap move is the one HMC option still out of the port
-    (Slice 7); hybrid models and ``fused_logpot`` run (the flag is
-    ignored on pure-quadratic targets, as in the reference)."""
+    """No HMC option is out of the port any more: ``mode_swap`` runs (on
+    these graphs no discrete class qualifies, so it warns and runs plain
+    Gibbs, as the reference); hybrid models and ``fused_logpot`` run (the
+    flag is ignored on pure-quadratic targets, as in the reference)."""
     gen = torch.Generator().manual_seed(0)
     for g in (toy.hybrid_chain()[0], toy.gaussian_grid(3, 3, seed=0)[0]):
         fg = lt.compile_graph(g, "cpu")
-        with pytest.raises(NotImplementedError, match="Slice 7"):
-            hmc.run_hmc(fg, gen, hmc.HMCConfig(mode_swap=True), n_chains=2,
-                        n_warmup=2, n_samples=2)
+        with pytest.warns(UserWarning, match="no-op"):
+            s_xc, _, diag = hmc.run_hmc(fg, gen, hmc.HMCConfig(mode_swap=True),
+                                        n_chains=2, n_warmup=2, n_samples=2)
+        assert s_xc.shape == (2, 2, fg.n_cont)
+        assert "mode_swap_accept" not in diag
         s_xc, s_xd, _ = hmc.run_hmc(fg, gen, hmc.HMCConfig(fused_logpot=True),
                                     n_chains=2, n_warmup=2, n_samples=2)
         assert s_xc.shape == (2, 2, fg.n_cont)

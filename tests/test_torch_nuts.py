@@ -217,8 +217,9 @@ def test_one_transition_statistics_match_reference():
 
 
 def test_out_of_slice_paths_raise():
-    """Only the mode-swap move is out of the slice now; a hybrid model
-    runs (NUTS-within-Gibbs) and returns its discrete draws."""
+    """Nothing is out of the slice now: a hybrid model runs
+    (NUTS-within-Gibbs) and returns its discrete draws, and ``mode_swap``
+    runs (without a qualifying class it warns and runs plain Gibbs)."""
     g, _ = toy.hybrid_chain()
     fg = lt.compile_graph(g, "cpu")
     gen = torch.Generator().manual_seed(0)
@@ -226,9 +227,10 @@ def test_out_of_slice_paths_raise():
                                   n_samples=2)
     assert s_xc.shape == (2, 2, 2) and s_xd.shape == (2, 2, 1)
     fg, _, _ = _corr_gaussian()
-    with pytest.raises(NotImplementedError, match="Slice 7"):
-        nuts.run_nuts(fg, gen, nuts.NUTSConfig(mode_swap=True), n_chains=2,
-                      n_warmup=2, n_samples=2)
+    with pytest.warns(UserWarning, match="no-op"):
+        s_xc, _, diag = nuts.run_nuts(fg, gen, nuts.NUTSConfig(mode_swap=True),
+                                      n_chains=2, n_warmup=2, n_samples=2)
+    assert s_xc.shape == (2, 2, 2) and "mode_swap_accept" not in diag
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -252,14 +252,17 @@ def test_smc_banded_grid_through_dia_move():
 
 
 def test_out_of_slice_paths_raise():
+    """A sharded particle axis is Slice 10's and raises; ``mode_swap``
+    runs (without a discrete class it warns and anneals as without it)."""
     g, *_ = lds.kalman_lds(T=3, seed=0)
     fg = lt.compile_graph(g, "cpu")
     gen = torch.Generator().manual_seed(0)
-    for cfg, kw, slice_ in (
-            (smc.SMCConfig(mode_swap=True), {}, "Slice 7"),
-            (smc.SMCConfig(), {"shard": object()}, "Slice 10")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            smc.run_smc(fg, gen, cfg, **kw)
+    with pytest.raises(NotImplementedError, match="Slice 10"):
+        smc.run_smc(fg, gen, smc.SMCConfig(), shard=object())
+    with pytest.warns(UserWarning, match="no-op"):
+        xc, *_ = smc.run_smc(fg, gen, smc.SMCConfig(n_particles=16, n_temps=3,
+                                                    mode_swap=True))
+    assert xc.shape == (16, fg.n_cont)
 
 
 @pytest.mark.parametrize("route", ["planned", "all_rows"])

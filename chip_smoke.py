@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --phase bp`` builds the kernels and runs only
+(``python3 chip_smoke.py --phase runtime`` builds the kernels and runs only
 the named paths of phase 6, comma-separated (``hybrid`` needs ``robot``
 before it), and prints no result lines.
 ``python3 chip_smoke.py --profile`` instead builds the kernels and
@@ -84,7 +84,22 @@ Phases (any failure raises and the script exits non-zero):
    full size); the BP path (``phase_bp``: GaBP on the 10×10 and 128×128
    grids against the dense solve and a sparse LU, LBP and EPBP on
    ``hybrid_chain`` with ``belief(x)``, EPBP on the 10×10 grid, lifted
-   LBP on the 320-person flagship, MaxWalkSAT against exact modes). Each
+   LBP on the 320-person flagship, MaxWalkSAT against exact modes); the
+   runtime path (``phase_runtime``): ``sample_checkpointed`` through K1
+   (10×10 grid, 65,536 chains), K2 (128×128 grid, 1,024 chains), K3 (NUTS,
+   10×10, 65,536 chains) and K5 (``hybrid_chain`` fused, 16,384 chains),
+   each uninterrupted and interrupted at the warmup's phase boundary and
+   after a sample chunk, then resumed: bitwise equal, and held to the
+   oracles; two ranks on the one card (``--rank-worker``: two processes
+   of this script joined over gloo on localhost, each on ``cuda:0``):
+   sharded ``run_hmc`` with adaptation off against the pooled unsharded
+   runs of each rank's stream, sharded ``run_hmc`` and ``run_nuts`` with
+   adaptation (step size and mass identical on both ranks), sharded
+   ``run_smc`` on ``kalman_lds(T=20)`` at 65,536 particles (both
+   schedules, K4 on each rank); the engine comparison
+   (``examples/torch_run_engine_comparison.py --model chain --quick``,
+   then the ladders, each engine held to the bound of the reference's
+   own test on ``hybrid_chain`` at the largest budget it ran). Each
    is held to exact answers (numpy/scipy oracles, closed forms) or to its
    plain route, and the bench's throughputs are printed (the VI, pod,
    mode-swap and BP rates again on ``[rates]`` lines; one phase alone:
@@ -2144,6 +2159,491 @@ def phase_bp(dev, smi, rows=128, n_lifted=320):
     return rates
 
 
+# ---- the runtime path: resumable sampling, two ranks, the comparison ----
+
+
+def _ckpt_timer():
+    """Wrap ``CheckpointManager.save`` to record each save's seconds (from
+    a device that has finished the chunk's work: the copy to the host,
+    ``torch.save``, fsync and the rename) and file bytes; returns
+    (records, undo)."""
+    import os
+
+    import torch
+
+    from lhvi_tpu_torch.utils import checkpoint
+
+    real = checkpoint.CheckpointManager.save
+    rec = []
+
+    def save(self, step, payload, wait=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(self, step, payload, wait)
+        rec.append((time.perf_counter() - t0,
+                    os.path.getsize(self._path(step))))
+
+    checkpoint.CheckpointManager.save = save
+
+    def undo():
+        checkpoint.CheckpointManager.save = real
+
+    return rec, undo
+
+
+def _as_torch(res):
+    """An ``HMCMoments``' numpy moments and diag as CPU tensors, the form
+    ``check_moments`` reads."""
+    import torch
+
+    return ({k: torch.as_tensor(v) for k, v in res.moments.items()},
+            {k: torch.as_tensor(v) for k, v in res.diag.items()})
+
+
+def resume_case(dev, smi, name, fg, cfg, engine, C, n_warmup, n_samples,
+                chunk, max_to_keep, keys):
+    """``sample_checkpointed`` uninterrupted, then interrupted at the
+    warmup's phase boundary (``n_warmup // 2`` must be a chunk boundary),
+    resumed, interrupted after one sample chunk, resumed to the end: the
+    moments and ``keys`` of ``diag`` bitwise equal. Prints checkpoint bytes,
+    seconds per save and chain-samples/s beside ``run_hmc``/``run_nuts``'s
+    at the same size. Returns (result, rates)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch.engines import hmc, nuts
+    from lhvi_tpu_torch.engines.resumable import sample_checkpointed
+
+    assert (n_warmup // 2) % chunk == 0
+    root = tempfile.mkdtemp(prefix=f"lhvi_resume_{name}_")
+    kw = dict(engine=engine, n_chains=C, n_warmup=n_warmup,
+              n_samples=n_samples, chunk_size=chunk, max_to_keep=max_to_keep)
+    run = nuts.run_nuts if engine == "nuts" else hmc.run_hmc
+    # a warm call first (plans, handles, first launches), then the timed one
+    run(fg, torch.Generator(dev).manual_seed(4), cfg, n_chains=C,
+        n_warmup=2, n_samples=2, collect="moments")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, _, _ = run(fg, torch.Generator(dev).manual_seed(5), cfg, n_chains=C,
+                  n_warmup=n_warmup, n_samples=n_samples, collect="moments")
+    float(m["mean"].sum())
+    dt_plain = time.perf_counter() - t0
+    rec, undo = _ckpt_timer()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = sample_checkpointed(fg, torch.Generator(dev).manual_seed(5),
+                                   cfg, ckpt_dir=f"{root}/full", **kw)
+        dt_full = time.perf_counter() - t0
+        saves = list(rec)
+        shutil.rmtree(f"{root}/full")
+        part = f"{root}/part"
+        assert sample_checkpointed(
+            fg, torch.Generator(dev).manual_seed(5), cfg, ckpt_dir=part,
+            _interrupt_warmup_after=n_warmup // 2 // chunk, **kw) is None
+        assert sample_checkpointed(
+            fg, torch.Generator(dev).manual_seed(5), cfg, ckpt_dir=part,
+            _interrupt_after=1, **kw) is None
+        resumed = sample_checkpointed(fg, torch.Generator(dev).manual_seed(5),
+                                      cfg, ckpt_dir=part, **kw)
+    finally:
+        undo()
+        shutil.rmtree(root, ignore_errors=True)
+    same = {k: bool(np.array_equal(full.moments[k], resumed.moments[k]))
+            for k in ("mean", "var", "disc_probs")}
+    same.update({k: bool(np.array_equal(full.diag[k], resumed.diag[k]))
+                 for k in keys})
+    save_s = [s for s, _ in saves]
+    rates = {f"resume_{name}_chain_samples_per_s": C * n_samples / dt_full,
+             f"plain_{name}_chain_samples_per_s": C * n_samples / dt_plain}
+    log(f"[runtime] resume {name}: {C} chains, {n_warmup}+{n_samples} in "
+        f"chunks of {chunk}: bitwise after a warmup interruption at the "
+        f"phase boundary and a sample-chunk interruption: {same}; "
+        f"checkpoint {saves[-1][1]} B, {len(saves)} saves, median "
+        f"{statistics.median(save_s):.4f} s a save ({sum(save_s):.3f} s of "
+        f"{dt_full:.3f} s); sample_checkpointed "
+        f"{rates[f'resume_{name}_chain_samples_per_s']:.6g} chain-samples/s "
+        f"(warmup and saves in the clock) against {run.__name__} "
+        f"{rates[f'plain_{name}_chain_samples_per_s']:.6g} at the same size "
+        f"on {smi}")
+    if not all(same.values()):
+        raise AssertionError(f"resume {name} is not bitwise: {same}")
+    rates[f"ckpt_{name}_bytes"] = saves[-1][1]
+    rates[f"ckpt_{name}_save_s"] = statistics.median(save_s)
+    return full, rates
+
+
+def phase_resume(dev, smi, C=65536, C_big=1024, rows=128, C_hybrid=16384,
+                 steps=(100, 100, 50), big_steps=(200, 200, 100)):
+    """Bitwise resume on the card through K1 (10×10 grid), K2 (the banded
+    grid), K3 (NUTS on the 10×10 grid) and K5 (``hybrid_chain`` fused),
+    each held to its oracle as well."""
+    import numpy as np
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import hmc, nuts
+    from lhvi_tpu_torch.models.toy import gaussian_grid, hybrid_chain
+    from lhvi_tpu_torch.utils.oracle import ExactPosterior
+
+    rates = {}
+    diag_keys = ("accept_rate", "rhat", "ess_bm", "step_size", "inv_mass")
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg = compile_graph(g, dev)
+    J = fg.meta.np_global["quad_J"].astype(np.float64)
+    h = fg.meta.np_global["quad_h"].astype(np.float64)
+    mean_x, var_x = np.linalg.solve(J, h), np.diag(np.linalg.inv(J))
+    for name, engine, cfg in (
+            ("grid10x10", "hmc", hmc.HMCConfig(n_leapfrog=8,
+                                               init_step_size=0.12)),
+            ("nuts10x10", "nuts", nuts.NUTSConfig(max_depth=4,
+                                                  init_step_size=0.12))):
+        res, r = resume_case(dev, smi, name, fg, cfg, engine, C, *steps, 2,
+                             diag_keys)
+        rates.update(r)
+        check_moments(f"resume {name}", *_as_torch(res), mean_x,
+                      np.arange(fg.n_cont), var_x)
+    g, _ = gaussian_grid(rows, rows, seed=1, evidence_frac=0.05)
+    fg = compile_graph(g, dev, quad_max_n=min(4096, rows * rows // 4))
+    assert fg.quad_sparse and hmc._use_dia(fg, hmc.HMCConfig())
+    lu, h = grid_lu(fg)
+    spot = np.random.default_rng(0).choice(fg.n_cont, 64, replace=False)
+    var_x = np.array([lu.solve(np.eye(fg.n_cont, 1, -int(i)).ravel())[i]
+                      for i in spot])
+    res, r = resume_case(dev, smi, f"grid{rows}x{rows}", fg,
+                         hmc.HMCConfig(n_leapfrog=6, init_step_size=0.05),
+                         "hmc", C_big, *big_steps, 2, diag_keys)
+    rates.update(r)
+    check_moments(f"resume grid{rows}x{rows}", *_as_torch(res), lu.solve(h),
+                  spot, var_x)
+    g, (d, x1, x2) = hybrid_chain()
+    fg = compile_graph(g, dev)
+    res, r = resume_case(dev, smi, "hybrid_chain_fused", fg,
+                         hmc.HMCConfig(fused_logpot=True), "hmc", C_hybrid,
+                         *steps, 2, diag_keys + ("rhat_disc",))
+    rates.update(r)
+    exact = ExactPosterior(g, cont_grid=161)
+    errs = [abs(res.mean(x) - exact.mean(x)) for x in (x1, x2)]
+    derr = float(np.abs(res.disc_marginal(d) - exact.disc_marginal(d)).max())
+    log(f"[runtime] resume hybrid_chain_fused: mean err {max(errs):.4f} "
+        f"(< 0.12), P(d) err {derr:.4f} (< 0.08), rhat_disc "
+        f"{float(res.diag['rhat_disc'].max()):.4f}")
+    if not (max(errs) < 0.12 and derr < 0.08):
+        raise AssertionError("resume hybrid_chain off the exact posterior")
+    return rates
+
+
+def sharded_checks(dev, shard, C=65536, N=65536, S=50, steps=(100, 100)):
+    """One rank's part of the two-rank path (``rank_worker``): sharded
+    ``run_hmc`` with adaptation off beside this rank's unsharded run from
+    its own stream, sharded ``run_hmc`` and ``run_nuts`` with adaptation,
+    sharded ``run_smc`` on ``kalman_lds(T=20)`` with both schedules.
+    Returns what the parent checks."""
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import hmc, nuts, smc
+    from lhvi_tpu_torch.models.lds import kalman_lds
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+    from lhvi_tpu_torch.parallel import replicas_equal, split_generator
+
+    def gen(seed):
+        return torch.Generator(dev).manual_seed(seed)
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    def np_(m):
+        return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                for k, v in m.items()}
+
+    out = {}
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg = compile_graph(g, dev)
+    J = fg.meta.np_global["quad_J"].astype(np.float64)
+    h = fg.meta.np_global["quad_h"].astype(np.float64)
+    mean_x, var_x = np.linalg.solve(J, h), np.diag(np.linalg.inv(J))
+    off = hmc.HMCConfig(n_leapfrog=8, init_step_size=0.12, adapt_mass=False)
+    kw = dict(n_warmup=0, collect="moments", stream_diag=False)
+    hmc.run_hmc(fg, gen(1), off, n_chains=C, n_samples=2, shard=shard, **kw)
+    sync()
+    t0 = time.perf_counter()
+    m1, _, d1 = hmc.run_hmc(fg, gen(0), off, n_chains=C, n_samples=S,
+                            shard=shard, **kw)
+    float(m1["mean"].sum())
+    dt = time.perf_counter() - t0
+    m0, _, d0 = hmc.run_hmc(fg, split_generator(gen(0), shard.rank)[0], off,
+                            n_chains=C // shard.world, n_samples=S, **kw)
+    out["off"] = {"sharded": np_(m1), "local": np_(m0), "s": dt,
+                  "acc": (float(d1["accept_rate"]), float(d0["accept_rate"]))}
+    for name, run, cfg in (
+            ("hmc", hmc.run_hmc, hmc.HMCConfig(n_leapfrog=8,
+                                               init_step_size=0.12)),
+            ("nuts", nuts.run_nuts, nuts.NUTSConfig(max_depth=4,
+                                                    init_step_size=0.12))):
+        m, _, d = run(fg, gen(2), cfg, n_chains=C, n_warmup=steps[0],
+                      n_samples=steps[1], collect="moments", shard=shard)
+        mm = m["mean"].cpu().numpy().astype(np.float64)
+        v = m["var"].cpu().numpy().astype(np.float64)
+        out[name] = {
+            "same": (replicas_equal(d["step_size"], shard)
+                     and replicas_equal(d["inv_mass"], shard)),
+            "err": (float(np.abs(mm - mean_x).mean()),
+                    float(np.abs(mm - mean_x).max())),
+            "rel": (float(np.abs(v / var_x - 1).mean()),
+                    float(np.abs(v / var_x - 1).max())),
+            "acc": float(d["accept_rate"]), "step": float(d["step_size"]),
+            "ess_min": float(d["ess_bm"].min()),
+            "div": float(d.get("divergence_rate", torch.zeros(()))),
+        }
+    g, _, _ = kalman_lds(T=20, seed=0)
+    fg = compile_graph(g, dev)
+    for adaptive in (False, True):
+        cfg = smc.SMCConfig(n_particles=N, n_temps=50, n_moves=2,
+                            adaptive=adaptive)
+        _, _, lw, lz, d = smc.run_smc(fg, gen(3), cfg, shard=shard)
+        out[f"smc_{adaptive}"] = {
+            "lz": float(lz), "rows": int(lw.shape[0]),
+            "n_used": int(d["n_temps_used"]),
+            "same": replicas_equal(torch.stack([lz, d["final_step"]]), shard)}
+    return out
+
+
+def rank_worker(rank: int, world: int, port: int, out: str) -> int:
+    """One rank of the two-rank path: joins a gloo group on localhost, works
+    on ``cuda:0``, saves its results and launch counts to ``out``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    import lhvi_tpu_torch  # noqa: F401  (turns TF32 off)
+    from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
+    from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
+    from lhvi_tpu_torch.ops.resample import weight_pipeline
+    from lhvi_tpu_torch.parallel import init_distributed
+
+    torch.cuda.set_device(0)
+    shard = init_distributed("gloo", f"tcp://127.0.0.1:{port}", rank, world)
+    counters = {"quad_leapfrog": quad_leapfrog, "nuts_traj": nuts_trajectory,
+                "weights": weight_pipeline}
+    for c in counters.values():
+        c.launches = 0
+    res = sharded_checks(torch.device("cuda", 0), shard)
+    res["launches"] = {k: c.launches for k, c in counters.items()}
+    torch.save(res, f"{out}/rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(argv_tail, world=2, timeout=600):
+    """Run ``world`` ranks of this script (``--rank-worker``), wait for all,
+    and return their saved results; a rank's non-zero exit fails."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+
+    out = tempfile.mkdtemp(prefix="lhvi_ranks_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker", str(r),
+         str(world), str(port), out] + list(argv_tail),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+    res = [torch.load(f"{out}/rank{r}.pt", weights_only=False)
+           for r in range(world)]
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
+def check_ranks(res, smi, C=65536, N=65536, S=50, log_z=-3.81307):
+    """The parent's checks of the two-rank path → (rates, launches)."""
+    import numpy as np
+
+    world = len(res)
+    launches = {k: [r["launches"][k] for r in res]
+                for k in res[0]["launches"]}
+    log(f"[runtime] two ranks on one card (gloo, cuda:0): launches per "
+        f"rank {launches}")
+    for k, per in launches.items():
+        if min(per) <= 0:
+            raise AssertionError(f"{k} never ran on a rank: {per}")
+    sh = [r["off"]["sharded"] for r in res]
+    loc = [r["off"]["local"] for r in res]
+    n_obs = sh[0]["n_obs"]
+    counts = np.rint(sh[0]["disc_probs"] * n_obs)
+    pooled_counts = sum(np.rint(x["disc_probs"] * x["n_obs"]) for x in loc)
+    mean = sum(x["mean"].astype(np.float64) for x in loc) / world
+    second = sum(x["var"].astype(np.float64) + x["mean"].astype(np.float64)
+                 ** 2 for x in loc) / world
+    var = second - mean ** 2
+    rm = float(np.max(np.abs(sh[0]["mean"] - mean) / np.maximum(
+        np.abs(mean), 1e-6)))
+    rv = float(np.max(np.abs(sh[0]["var"] - var) / var))
+    log(f"[runtime] sharded run_hmc, adaptation off ({C} chains, {C // world} "
+        f"a rank, {S} samples) against the pooled rank runs: counts equal "
+        f"{bool(np.array_equal(counts, pooled_counts))}, mean rel diff "
+        f"{rm:.3e}, var rel diff {rv:.3e} (rtol 1e-5); ranks agree "
+        f"{all(np.array_equal(sh[0][k], sh[1][k]) for k in ('mean', 'var'))}")
+    if not (np.array_equal(counts, pooled_counts) and rm < 1e-5
+            and rv < 1e-5 and all(np.array_equal(sh[0][k], s[k])
+                                  for s in sh for k in ("mean", "var"))):
+        raise AssertionError("sharded HMC is not the pooled rank runs")
+    rates = {"sharded_grid10x10_chain_samples_per_s":
+             C * S / max(r["off"]["s"] for r in res)}
+    for name in ("hmc", "nuts"):
+        a = res[0][name]
+        log(f"[runtime] sharded {name} with adaptation: step {a['step']:.6g} "
+            f"and inv_mass identical on the ranks {[r[name]['same'] for r in res]}; "
+            f"accept {a['acc']:.4f}, mean err mean {a['err'][0]:.4f} max "
+            f"{a['err'][1]:.4f}, var rel err mean {a['rel'][0]:.4f} max "
+            f"{a['rel'][1]:.4f}, ess_bm min {a['ess_min']:.1f}, divergence "
+            f"{a['div']:.3e}")
+        if not (all(r[name]["same"] for r in res)
+                and all(r[name]["step"] == a["step"] for r in res)
+                and 0.6 < a["acc"] <= 1.0 and a["err"][0] < 0.05
+                and a["err"][1] < 0.25 and a["rel"][0] < 0.10
+                and a["rel"][1] < 0.35 and a["ess_min"] > 100
+                and a["div"] < 0.01):
+            raise AssertionError(f"sharded {name} off the oracle or the ranks "
+                                 "disagree")
+    for adaptive in (False, True):
+        a = res[0][f"smc_{adaptive}"]
+        log(f"[runtime] sharded run_smc, {'adaptive' if adaptive else 'fixed'} "
+            f"schedule, {N} particles: log Z {a['lz']:.5f} (exact {log_z}; err "
+            f"{abs(a['lz'] - log_z):.4f}), temperatures {a['n_used']}, ranks "
+            f"agree {[r[f'smc_{adaptive}']['same'] for r in res]}")
+        if not (abs(a["lz"] - log_z) < 0.1 and a["rows"] == N // world
+                and all(r[f"smc_{adaptive}"]["same"] for r in res)):
+            raise AssertionError("sharded SMC off the exact log Z")
+    log(f"[runtime] sharded grid10x10: "
+        f"{rates['sharded_grid10x10_chain_samples_per_s']:.6g} "
+        f"chain-samples/s over two ranks on one card on {smi}")
+    return rates, launches
+
+
+# the bounds of the reference's own tests on hybrid_chain (tests/test_vi.py,
+# test_lbp.py, test_epbp.py, test_hmc.py, test_nuts_map.py, test_smc.py),
+# each held at the largest budget the comparison ran the engine
+COMPARISON_BOUNDS = {"vi": 0.15, "lbp": 0.1, "epbp": 0.22, "hmc": 0.08,
+                     "nuts": 0.1, "smc": 0.1}
+
+
+def phase_comparison(smi, extra=()):
+    """``examples/torch_run_engine_comparison.py --model chain --quick`` on
+    the card (its table printed) and the ladders, three processes at once
+    (so each one's ``wall_s`` shares the host with the others): the quick
+    run, the full ladders of VI, LBP, EPBP and SMC, and HMC's and NUTS's up
+    to 150 samples. Every engine's mean error at the largest budget it ran
+    stays within its bound (``COMPARISON_BOUNDS``): one rung is too few for
+    VI (10 Adam steps) and LBP (1 iteration), in the reference's script as
+    in the port's."""
+    import json as _json
+    import os
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "examples", "torch_run_engine_comparison.py")
+    runs = [("quick", ["--quick"]),
+            ("ladders vi,lbp,epbp,smc", ["--engines", "vi,lbp,epbp,smc"]),
+            ("ladders hmc,nuts to 150", ["--engines", "hmc,nuts",
+                                         "--max-budget", "150"])]
+    best = {}
+    procs = []
+    t0 = time.perf_counter()
+    for label, args in runs:
+        fd, path = tempfile.mkstemp(suffix=".jsonl")
+        os.close(fd)
+        procs.append((label, path, subprocess.Popen(
+            [sys.executable, script, "--model", "chain", "--metrics",
+             path] + args + list(extra),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        outs = [p.communicate(timeout=600) for _, _, p in procs]
+    finally:  # every process this phase started is stopped
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (label, path, p), (out, err) in zip(procs, outs):
+        with open(path) as fh:
+            recs = [_json.loads(line) for line in fh]
+        os.remove(path)
+        if p.returncode != 0:
+            raise AssertionError(f"engine comparison ({label}) exited "
+                                 f"{p.returncode}:\n{err[-3000:]}")
+        errors = [x for x in recs if x["event"] == "error"]
+        if errors:
+            raise AssertionError(f"engine comparison ({label}): {errors}")
+        log(f"[runtime] engine comparison --model chain ({label}; "
+            f"{len(runs)} processes at once, "
+            f"{time.perf_counter() - t0:.1f} s on {smi}):")
+        for line in out[out.rindex("engine  budget"):].rstrip().splitlines():
+            log(f"[runtime]   {line}")
+        for x in recs:
+            if x["event"] == "point" and x["budget"] >= best.get(
+                    x["engine"], {"budget": -1})["budget"]:
+                best[x["engine"]] = x
+    bad = {e: (x["budget"], x["mean_err_avg"]) for e, x in best.items()
+           if not x["mean_err_avg"] < COMPARISON_BOUNDS[e]}
+    log("[runtime] comparison at each engine's largest budget: " + ", ".join(
+        f"{e} {x['mean_err_avg']} at {x['budget']} (< "
+        f"{COMPARISON_BOUNDS[e]})" for e, x in best.items()))
+    if bad or set(best) != set(COMPARISON_BOUNDS):
+        raise AssertionError(f"engine comparison out of bounds: {bad}")
+
+
+def phase_runtime(dev, smi):
+    """Resumable sampling on the card (K1, K2, K3, K5), the two-rank path
+    (K1, K3, K4 on each rank) and the engine comparison."""
+    from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
+    from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
+    from lhvi_tpu_torch.ops.resample import weight_pipeline
+
+    t0 = time.perf_counter()
+    rates = phase_resume(dev, smi)
+    log(f"[time] runtime: resume {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    r, launches = check_ranks(spawn_ranks(()), smi)
+    rates.update(r)
+    # the ranks' launches are this path's: fold them into the counts
+    for k, c in (("quad_leapfrog", quad_leapfrog),
+                 ("nuts_traj", nuts_trajectory), ("weights", weight_pipeline)):
+        c.launches += sum(launches[k])
+    log(f"[time] runtime: two ranks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_comparison(smi)
+    log(f"[time] runtime: comparison {time.perf_counter() - t0:.1f} s")
+    return rates
+
+
 def check_moments(name, moments, diag, mean_x, spot, var_x):
     """tests/test_ell_oracle.py:76-94 thresholds."""
     import numpy as np
@@ -2397,6 +2897,9 @@ def k4_profile(dev, smi, sizes=(1, 4096, 16384, 65536)):
 def main() -> int:
     import torch
 
+    if "--rank-worker" in sys.argv[1:]:
+        i = sys.argv.index("--rank-worker")
+        return rank_worker(*map(int, sys.argv[i + 1:i + 4]), sys.argv[i + 4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2469,7 +2972,13 @@ def main() -> int:
             ("pod", lambda: keep.update(phase_pod(dev, smi)), ()),
             ("modeswap", lambda: keep.update(phase_modeswap(dev, smi)), ()),
             ("pod_scale", lambda: keep.update(phase_pod_scale(dev, smi)), ()),
-            ("bp", lambda: keep.update(phase_bp(dev, smi)), ())):
+            ("bp", lambda: keep.update(phase_bp(dev, smi)), ()),
+            # resumable sampling through K1, K2, K3 and K5; two ranks on
+            # the card, each launching K1, K3 and K4 (their counts folded
+            # in); the engine comparison
+            ("runtime", lambda: keep.update(phase_runtime(dev, smi)),
+             ("quad_leapfrog", "dia_proposal", "nuts_traj", "weights",
+              "logpot_leapfrog"))):
         if only is not None and path not in only:
             continue
         for c in counters.values():
@@ -2517,7 +3026,18 @@ def main() -> int:
               "pod320_modeswap1_chain_samples_per_s",
               "pod320_modeswap4_chain_samples_per_s", "pod600", "pod1000",
               "gabp10x10", "gabp128", "lbp_hybrid", "epbp_hybrid",
-              "epbp10x10", "lbp_lifted320", "mws"):
+              "epbp10x10", "lbp_lifted320", "mws",
+              "resume_grid10x10_chain_samples_per_s",
+              "plain_grid10x10_chain_samples_per_s",
+              "sharded_grid10x10_chain_samples_per_s",
+              "resume_nuts10x10_chain_samples_per_s",
+              "plain_nuts10x10_chain_samples_per_s",
+              "resume_grid128x128_chain_samples_per_s",
+              "plain_grid128x128_chain_samples_per_s",
+              "resume_hybrid_chain_fused_chain_samples_per_s",
+              "plain_hybrid_chain_fused_chain_samples_per_s",
+              "ckpt_grid10x10_bytes", "ckpt_grid10x10_save_s",
+              "ckpt_grid128x128_bytes", "ckpt_grid128x128_save_s"):
         log(f"[rates] {k} {keep[k]:.6g} on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -13,6 +13,7 @@ import torch
 
 from lhvi_tpu_torch.fg.graph import Domain, RV, F, Graph
 from lhvi_tpu_torch.fg.compile import compile_graph, CompiledFG
+from lhvi_tpu_torch.lift.color import compile_lifted
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -25,6 +26,7 @@ __all__ = [
     "F",
     "Graph",
     "compile_graph",
+    "compile_lifted",
     "CompiledFG",
     "__version__",
 ]

@@ -30,6 +30,13 @@ seed and its Philox offset, which each proposal advances.
 (``engines/modeswap.py``) after the Gibbs stage; its plan is built on the
 host at the run's start, and ``mode_swap_every > 1`` gates the move on a
 host generator seeded once from the run's generator.
+
+``shard`` (a ``parallel.ChainShard``) splits the chains over the ranks of
+a process group: each rank runs its block of chains with its own
+generator and its own kernel launches, and the cross-chain quantities
+(the acceptance behind dual averaging, the batched Welford update, the
+moment sums, the streamed diagnostics) go through the collectives of
+``parallel/mesh.py``.
 """
 
 from __future__ import annotations
@@ -43,6 +50,10 @@ import torch
 
 from lhvi_tpu_torch.fg.compile import _NEG_BIG, CompiledFG
 from lhvi_tpu_torch.ops.dia import _kinetic
+from lhvi_tpu_torch.parallel.mesh import (all_reduce, assemble_rows,
+                                          local_count, n_chain_shards,
+                                          split_generator)
+from lhvi_tpu_torch.utils.debug import check_nan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -370,21 +381,31 @@ def mode_swap_stage(fg: CompiledFG, cfg, state: HMCState, gen, gate, xd):
 
 
 def hmc_transition(fg: CompiledFG, cfg: HMCConfig, state: HMCState, gen,
-                   adapt: bool, gate=None):
+                   adapt: bool, gate=None, shard=None):
     """One full HMC-within-Gibbs transition for all chains: the Gibbs
     sweep(s), the mode-swap move where it is on (``gate``: the host
     generator of ``modeswap.maybe_mode_swap``), then one HMC proposal at
-    the new discrete state."""
+    the new discrete state. Under ``shard`` the adaptation reads the
+    acceptance and the Welford batch over all ranks' chains."""
     xd = sweep_all(fg, cfg, gen, state.xc, state.xd)
     state, xd = mode_swap_stage(fg, cfg, state, gen, gate, xd)
     eps = torch.exp(state.log_eps)
     xc, acc = _hmc_step_batched(fg, cfg, gen, state.xc, xd, eps,
                                 state.inv_mass)
+    check_nan("hmc_transition", xc=xc, acc=acc)
     state = state._replace(xc=xc, xd=xd)
     if adapt:
-        state = _da_update(state, torch.mean(acc), cfg)
-        state = _welford_update(state, xc)
+        state = _da_update(state, chain_mean(acc, shard), cfg)
+        state = _welford_update(state, xc, shard)
     return state, acc
+
+
+def chain_mean(v, shard=None):
+    """Mean of a per-chain ``[C]`` tensor over all ranks' chains (one
+    ``all_reduce`` under ``shard``)."""
+    if shard is None:
+        return torch.mean(v)
+    return all_reduce(torch.sum(v), shard) / (v.shape[0] * shard.world)
 
 
 def _scalar(v, device) -> torch.Tensor:
@@ -459,13 +480,19 @@ def _da_update(state: HMCState, accept_mean, cfg: HMCConfig):
     )
 
 
-def _welford_update(state: HMCState, xc):
+def _welford_update(state: HMCState, xc, shard=None):
     """Chan et al. batched Welford: fold all C chain states in at once (the
-    estimand is the cross-chain posterior variance)."""
-    C = xc.shape[0]
+    estimand is the cross-chain posterior variance); under ``shard`` the
+    batch is every rank's chains (two ``all_reduce``s)."""
+    C = xc.shape[0] * n_chain_shards(shard)
     n_new = state.welford_n + C
-    batch_mean = torch.mean(xc, dim=0)
-    batch_m2 = torch.sum((xc - batch_mean) ** 2, dim=0)
+    if shard is None:
+        batch_mean = torch.mean(xc, dim=0)
+        batch_m2 = torch.sum((xc - batch_mean) ** 2, dim=0)
+    else:
+        batch_mean = all_reduce(torch.sum(xc, dim=0), shard) / C
+        batch_m2 = all_reduce(torch.sum((xc - batch_mean) ** 2, dim=0),
+                              shard)
     delta = batch_mean - state.welford_mean
     mean = state.welford_mean + delta * (C / n_new)
     m2 = state.welford_m2 + batch_m2 + delta**2 * (state.welford_n * C / n_new)
@@ -678,24 +705,30 @@ class _MomentStream:
     sums for the mean and variance, per-value counts of the discrete
     latents, and with ``stream_diag`` the streamed split-R̂/ESS of the
     continuous draws and the split-R̂ of the value traces of up to
-    ``disc_diag_cap`` discrete latents (``disc_diag_select``)."""
+    ``disc_diag_cap`` discrete latents (``disc_diag_select``).
+
+    ``n_chains`` counts every rank's chains; under ``shard`` this rank
+    folds in its own block, and ``finalize`` reduces the sums and
+    assembles the per-chain accumulators over the ranks once."""
 
     def __init__(self, fg: CompiledFG, n_chains: int, n_samples: int,
-                 stream_diag: bool, disc_diag_cap: int):
+                 stream_diag: bool, disc_diag_cap: int, shard=None):
         dev = fg.device
         self.fg, self.n_chains, self.n_samples = fg, n_chains, n_samples
+        self.shard = shard
+        C = local_count(n_chains, shard)
         self.half = n_samples // 2
         self.bm_len, self.n_batches = _bm_schedule(n_samples)
         self.s1 = torch.zeros(fg.n_cont, device=dev)
         self.s2 = torch.zeros(fg.n_cont, device=dev)
         self.cnt = torch.zeros((max(fg.n_disc, 1), fg.max_v), device=dev)
-        self.sd = (_stream_diag_init(n_chains, fg.n_cont, dev)
+        self.sd = (_stream_diag_init(C, fg.n_cont, dev)
                    if stream_diag else None)
         self.sel = self.sdd = None
         if stream_diag and fg.n_disc > 0 and disc_diag_cap > 0:
             sel_np = disc_diag_select(fg, disc_diag_cap)
             self.sel = torch.as_tensor(sel_np, dtype=torch.int64, device=dev)
-            self.sdd = _stream_diag_disc_init(n_chains, len(sel_np), dev)
+            self.sdd = _stream_diag_disc_init(C, len(sel_np), dev)
 
     def update(self, t: int, xc, xd):
         """Fold draw ``t`` (0-based) of every chain in."""
@@ -714,21 +747,26 @@ class _MomentStream:
 
     def finalize(self):
         """``(moments, diag)``: the moments dict and the streamed
-        diagnostics' entries of ``diag``."""
+        diagnostics' entries of ``diag`` (over every rank's chains)."""
+        sh = self.shard
         n_obs = self.n_samples * self.n_chains
-        mean = self.s1 / n_obs
+        s1, s2, cnt = (all_reduce(a, sh) for a in (self.s1, self.s2,
+                                                   self.cnt))
+        mean = s1 / n_obs
         moments = {
             "mean": mean,
-            "var": torch.clamp(self.s2 / n_obs - mean**2, min=0.0),
-            "disc_probs": self.cnt / n_obs,
+            "var": torch.clamp(s2 / n_obs - mean**2, min=0.0),
+            "disc_probs": cnt / n_obs,
             "n_obs": n_obs,
         }
         diag = {}
         if self.sd is not None:
-            diag.update(_stream_diag_finalize(self.sd, self.n_samples,
+            sd = _StreamDiag(*(assemble_rows(a, sh) for a in self.sd))
+            diag.update(_stream_diag_finalize(sd, self.n_samples,
                                               self.bm_len))
         if self.sel is not None:
-            diag.update(_stream_diag_disc_finalize(self.sdd, self.n_samples))
+            sdd = _StreamDiagDisc(*(assemble_rows(a, sh) for a in self.sdd))
+            diag.update(_stream_diag_disc_finalize(sdd, self.n_samples))
             diag["disc_diag_idx"] = self.sel
         return moments, diag
 
@@ -762,13 +800,15 @@ def _gate(cfg, gen):
     return gate_generator(gen)
 
 
-def _ms_diag(cfg, state: HMCState) -> dict:
+def _ms_diag(cfg, state: HMCState, shard=None) -> dict:
     """``mode_swap_accept``: the move's acceptance per application over
-    the sampling window, where the move is on."""
+    the sampling window, where the move is on (every rank's chains: the
+    ranks' per-application means are over equal chain counts, and the
+    shared gate gives them equal application counts)."""
     if not cfg.mode_swap:
         return {}
-    return {"mode_swap_accept":
-            state.ms_acc_sum / torch.clamp(state.ms_acc_n, min=1.0)}
+    acc = all_reduce(state.ms_acc_sum, shard) / n_chain_shards(shard)
+    return {"mode_swap_accept": acc / torch.clamp(state.ms_acc_n, min=1.0)}
 
 
 def run_hmc(
@@ -782,12 +822,20 @@ def run_hmc(
     collect: str = "samples",
     stream_diag: bool = True,
     disc_diag_cap: int = 4096,
+    shard=None,
 ):
     """Run the sampler.
 
     ``gen`` is a ``torch.Generator`` on ``fg.device``; it drives every draw
     (initial state, Gibbs, momenta, accept uniforms); on the banded CUDA
     path its seed and Philox offset key K2's in-kernel momenta.
+
+    ``shard`` (a ``parallel.ChainShard``): this rank runs
+    ``n_chains / world`` chains (a count that does not divide raises) from
+    its own generator, ``split_generator(gen, rank)[0]``; the mode-swap
+    gate draws from the generator all ranks share. Every rank gets the
+    moments and diagnostics of all chains; ``collect="samples"`` returns
+    this rank's chains.
 
     collect="samples": returns (samples_xc [S,C,n_cont], samples_xd
     [S,C,n_disc], diag). collect="moments": streams sufficient statistics
@@ -805,11 +853,14 @@ def run_hmc(
         raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
     fg, cfg = _ensure_mode_swap_plan(fg, cfg)
     dev = fg.device
-    state = init_hmc_state(fg, gen, cfg, n_chains)
-    gate = _gate(cfg, gen)
+    C = local_count(n_chains, shard)
+    gen, shared = ((gen, gen) if shard is None
+                   else split_generator(gen, shard.rank))
+    state = init_hmc_state(fg, gen, cfg, C)
+    gate = _gate(cfg, shared)
 
     def trans(s, adapt):
-        return hmc_transition(fg, cfg, s, gen, adapt, gate)
+        return hmc_transition(fg, cfg, s, gen, adapt, gate, shard)
 
     state = run_warmup(fg, cfg, state, n_warmup, trans)
     # the move's acceptance is reported for the sampling window only
@@ -824,22 +875,25 @@ def run_hmc(
         return state, torch.mean(acc)
 
     acc_total = torch.zeros((), device=dev)
+
+    def base_diag(state):
+        acc = all_reduce(acc_total, shard) / n_chain_shards(shard)
+        return {
+            "accept_rate": acc / max(n_samples, 1),
+            "step_size": torch.exp(state.log_eps),
+            "inv_mass": state.inv_mass,
+            **_ms_diag(cfg, state, shard),
+        }
+
     if collect == "moments":
         ms = _MomentStream(fg, n_chains, n_samples, stream_diag,
-                           disc_diag_cap)
+                           disc_diag_cap, shard)
         for t in range(n_samples):
             state, acc = sample_step(state)
             acc_total = acc_total + acc
             ms.update(t, state.xc, state.xd)
         moments, stream = ms.finalize()
-        diag = {
-            "accept_rate": acc_total / max(n_samples, 1),
-            "step_size": torch.exp(state.log_eps),
-            "inv_mass": state.inv_mass,
-            **_ms_diag(cfg, state),
-            **stream,
-        }
-        return moments, None, diag
+        return moments, None, {**base_diag(state), **stream}
 
     s_xc, s_xd = [], []
     for _ in range(n_samples):
@@ -847,15 +901,10 @@ def run_hmc(
         acc_total = acc_total + acc
         s_xc.append(state.xc)
         s_xd.append(state.xd)
-    diag = {
-        "accept_rate": acc_total / max(n_samples, 1),
-        "step_size": torch.exp(state.log_eps),
-        "inv_mass": state.inv_mass,
-        **_ms_diag(cfg, state),
-    }
+    diag = base_diag(state)
     if not s_xc:
-        return (torch.zeros((0, n_chains, fg.n_cont), device=dev),
-                torch.zeros((0, n_chains, fg.n_disc), dtype=torch.int64,
+        return (torch.zeros((0, C, fg.n_cont), device=dev),
+                torch.zeros((0, C, fg.n_disc), dtype=torch.int64,
                             device=dev), diag)
     return torch.stack(s_xc), torch.stack(s_xd), diag
 

@@ -21,7 +21,9 @@ transition (NUTS-within-Gibbs).
 
 Same contract as ``hmc.run_hmc`` (``collect="moments"|"samples"``,
 ``thin``, ``stream_diag``, ``disc_diag_cap``, ``mode_swap`` with
-``diag["mode_swap_accept"]``). Chain sharding is Slice 10's.
+``diag["mode_swap_accept"]``, ``shard`` over the ranks of a process
+group: each rank runs its chains' K3 launches, the adaptation and the
+diagnostics reduce over all ranks).
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ import torch
 
 from lhvi_tpu_torch.engines import hmc as _hmc
 from lhvi_tpu_torch.fg.compile import CompiledFG
+from lhvi_tpu_torch.parallel.mesh import (all_reduce, local_count,
+                                          n_chain_shards, split_generator)
+from lhvi_tpu_torch.utils.debug import check_nan
 
 _DIVERGENCE = 1000.0
 
@@ -306,9 +311,9 @@ def _nuts_sweep_batched(fg: CompiledFG, gen, xc, xd, eps, inv_mass,
 
 
 def nuts_transition(fg: CompiledFG, cfg: NUTSConfig, state: _hmc.HMCState,
-                    gen, adapt: bool, gate=None):
+                    gen, adapt: bool, gate=None, shard=None):
     """One NUTS-within-Gibbs transition for all chains (the mode-swap move
-    after the Gibbs stage where it is on; ``gate`` as in
+    after the Gibbs stage where it is on; ``gate`` and ``shard`` as in
     ``hmc.hmc_transition``). Returns ``(state, (acc [C], depth [C],
     div [C]))``."""
     hcfg = cfg.to_hmc()
@@ -325,10 +330,11 @@ def nuts_transition(fg: CompiledFG, cfg: NUTSConfig, state: _hmc.HMCState,
     xc, acc, depth, div = _nuts_sweep_batched(
         fg, gen, state.xc, xd, eps, state.inv_mass, cfg.max_depth,
         traj_kernel=cfg.traj_kernel)
+    check_nan("nuts_transition", xc=xc, acc=acc)
     state = state._replace(xc=xc, xd=xd)
     if adapt:
-        state = _hmc._da_update(state, torch.mean(acc), hcfg)
-        state = _hmc._welford_update(state, xc)
+        state = _hmc._da_update(state, _hmc.chain_mean(acc, shard), hcfg)
+        state = _hmc._welford_update(state, xc, shard)
     return state, (acc, depth, div)
 
 
@@ -343,9 +349,10 @@ def run_nuts(
     collect: str = "samples",
     stream_diag: bool = True,
     disc_diag_cap: int = 4096,
+    shard=None,
 ):
     """NUTS-within-Gibbs over the compiled graph; the contract of
-    ``hmc.run_hmc``.
+    ``hmc.run_hmc`` (``shard`` included).
 
     collect="samples": ``(samples_xc [S, C, n_cont], samples_xd, diag)``;
     collect="moments": ``(moments, None, diag)`` with the discrete
@@ -360,11 +367,14 @@ def run_nuts(
     fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
     dev = fg.device
     hcfg = cfg.to_hmc()
-    state = _hmc.init_hmc_state(fg, gen, hcfg, n_chains)
-    gate = _hmc._gate(cfg, gen)
+    C = local_count(n_chains, shard)
+    gen, shared = ((gen, gen) if shard is None
+                   else split_generator(gen, shard.rank))
+    state = _hmc.init_hmc_state(fg, gen, hcfg, C)
+    gate = _hmc._gate(cfg, shared)
 
     def transition(s, adapt):
-        return nuts_transition(fg, cfg, s, gen, adapt, gate)
+        return nuts_transition(fg, cfg, s, gen, adapt, gate, shard)
 
     state = _hmc.run_warmup(fg, hcfg, state, n_warmup,
                             lambda s, adapt: (transition(s, adapt)[0], None))
@@ -385,19 +395,20 @@ def run_nuts(
             tot[i] = tot[i] + v
 
     def base_diag(state):
-        S = max(n_samples, 1)
+        S = max(n_samples, 1) * n_chain_shards(shard)
+        acc, depth, div = (all_reduce(v, shard) / S for v in tot)
         return {
-            "accept_rate": tot[0] / S,
-            "mean_depth": tot[1] / S,
-            "divergence_rate": tot[2] / S,
+            "accept_rate": acc,
+            "mean_depth": depth,
+            "divergence_rate": div,
             "step_size": torch.exp(state.log_eps),
             "inv_mass": state.inv_mass,
-            **_hmc._ms_diag(cfg, state),
+            **_hmc._ms_diag(cfg, state, shard),
         }
 
     if collect == "moments":
         ms = _hmc._MomentStream(fg, n_chains, n_samples, stream_diag,
-                                disc_diag_cap)
+                                disc_diag_cap, shard)
         for t in range(n_samples):
             state, stats = sample_step(state)
             add(stats)
@@ -413,8 +424,8 @@ def run_nuts(
         s_xd.append(state.xd)
     diag = base_diag(state)
     if not s_xc:
-        return (torch.zeros((0, n_chains, fg.n_cont), device=dev),
-                torch.zeros((0, n_chains, fg.n_disc), dtype=torch.int64,
+        return (torch.zeros((0, C, fg.n_cont), device=dev),
+                torch.zeros((0, C, fg.n_disc), dtype=torch.int64,
                             device=dev), diag)
     return torch.stack(s_xc), torch.stack(s_xd), diag
 

@@ -27,8 +27,19 @@ On the fixed schedule a temperature reads nothing back to the host. The
 adaptive schedule reads one flag per temperature (``β < 1``, the
 reference's ``lax.cond``) and stops the loop once β reaches 1.
 
-Not in this slice: a sharded particle axis (raises
-``NotImplementedError`` naming its slice).
+``shard`` (a ``parallel.ChainShard``) splits the particles over the ranks
+of a process group, the collective resampler: each rank moves its own
+block with its own generator (K5 or autograd per rank), while the
+incremental log-weights are assembled over the ranks (an ``all_reduce``
+into zeros) and every rank runs K4 on the whole vector. K4 is bitwise
+reproducible, so every rank holds the same normalized weights, cumulative
+sum, step log Z and ESS; the systematic offset comes from the generator
+all ranks share, so every rank computes the same ancestors. Where the ESS
+calls for it (a host read per temperature under ``shard``), the particles
+are assembled the same way and each rank takes its ancestors' rows. The
+adaptive schedule's bisection runs on the assembled vectors, so every
+rank picks the same β, and the acceptance behind the step adaptation is
+averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -48,6 +59,9 @@ from lhvi_tpu_torch.engines.hmc import (
 )
 from lhvi_tpu_torch.fg.compile import CompiledFG
 from lhvi_tpu_torch.ops.resample import systematic_parents, weight_pipeline
+from lhvi_tpu_torch.parallel.mesh import (all_reduce, assemble_rows,
+                                          local_count, split_generator)
+from lhvi_tpu_torch.utils.debug import check_nan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,17 +91,10 @@ class SMCConfig:
 
 
 class SMCState(NamedTuple):
-    xc: torch.Tensor  # [N, n_cont]
-    xd: torch.Tensor  # [N, n_disc]
-    log_w: torch.Tensor  # [N], normalized (logsumexp 0) between steps
+    xc: torch.Tensor  # [N, n_cont] (this rank's rows under a shard)
+    xd: torch.Tensor  # [N, n_disc] (likewise)
+    log_w: torch.Tensor  # [N] of all particles, normalized (logsumexp 0)
     log_z: torch.Tensor  # 0-d running evidence estimate
-
-
-def _check_supported(shard):
-    if shard is not None:
-        raise NotImplementedError(
-            "a sharded particle axis arrives with Slice 10, runtime and "
-            "public surface (ROADMAP Queue 1 item 12)")
 
 
 def _base_log_prob(fg: CompiledFG, cfg: SMCConfig, xc):
@@ -135,21 +142,37 @@ def _choose_beta(log_w, delta_lp, beta, target_log_cess, n_iters: int = 26):
     return beta + torch.maximum(delta, hi0 * 1e-3)
 
 
+def _delta_lp(fg: CompiledFG, cfg: SMCConfig, state: SMCState, shard=None):
+    """log p − log q0 of every particle, ``[N]`` (assembled over the ranks
+    under ``shard``)."""
+    d = (fg.log_prob_batched(state.xc, state.xd)
+         - _base_log_prob(fg, cfg, state.xc))
+    return assemble_rows(d, shard)
+
+
 def _reweight_resample(fg: CompiledFG, cfg: SMCConfig, state: SMCState,
-                       beta_prev, beta, u0, delta_lp=None):
+                       beta_prev, beta, u0, delta_lp=None, shard=None):
     """Reweight to β, update log Z, and resample where the ESS fell below
-    ``ess_frac·N`` — every step on the device. ``u0`` is the systematic
-    resampler's uniform (a 0-d tensor). Returns ``(state, ess)``."""
-    N = state.xc.shape[0]
+    ``ess_frac·N`` — every step on the device (under ``shard`` the ESS
+    flag is read back, and the particles assembled only to resample).
+    ``u0`` is the systematic resampler's uniform (a 0-d tensor);
+    ``delta_lp`` covers all N particles. Returns ``(state, ess)``."""
+    N = state.log_w.shape[0]
     if delta_lp is None:
-        delta_lp = (fg.log_prob_batched(state.xc, state.xd)
-                    - _base_log_prob(fg, cfg, state.xc))
+        delta_lp = _delta_lp(fg, cfg, state, shard)
     lw_norm, cum, step_z, ess = weight_pipeline(
         state.log_w + (beta - beta_prev) * delta_lp)
     idx = systematic_parents(u0, cum, N)
     need = ess < cfg.ess_frac * N
-    xc = torch.where(need, state.xc[idx], state.xc)
-    xd = torch.where(need, state.xd[idx], state.xd)
+    if shard is None:
+        xc = torch.where(need, state.xc[idx], state.xc)
+        xd = torch.where(need, state.xd[idx], state.xd)
+    elif bool(need):
+        lo, hi = shard.rows(N)
+        xc = assemble_rows(state.xc, shard)[idx[lo:hi]]
+        xd = assemble_rows(state.xd, shard)[idx[lo:hi]]
+    else:
+        xc, xd = state.xc, state.xd
     log_w = torch.where(need, torch.full_like(lw_norm, -math.log(1.0 * N)),
                         lw_norm)
     return SMCState(xc, xd, log_w, state.log_z + step_z), ess
@@ -280,25 +303,36 @@ def run_smc(fg: CompiledFG, gen: torch.Generator,
     ``betas``), ``log_z``, ``n_temps_used`` and ``final_step``.
 
     ``gen`` (a ``torch.Generator`` on ``fg.device``) drives every draw.
+    Under ``shard`` (see the module docstring) this rank moves
+    ``n_particles / world`` particles (a count that does not divide
+    raises) from ``split_generator(gen, rank)[0]``, and returns its rows of
+    ``xc``, ``xd`` and ``log_w`` (normalized over all particles); log Z and
+    ``diag`` are the same on every rank.
     """
-    _check_supported(shard)
     fg, cfg = _ensure_mode_swap_plan(fg, cfg)
     N = cfg.n_particles
+    n_loc = local_count(N, shard)
     dev = fg.device
+    gen, shared = ((gen, gen) if shard is None
+                   else split_generator(gen, shard.rank))
     mid = 0.5 * (fg.cont_lo + fg.cont_hi)
-    xc = mid + cfg.base_scale * torch.randn((N, fg.n_cont), generator=gen,
-                                            device=dev)
-    u = torch.rand((N, fg.n_disc), generator=gen, device=dev)
+    xc = mid + cfg.base_scale * torch.randn((n_loc, fg.n_cont),
+                                            generator=gen, device=dev)
+    u = torch.rand((n_loc, fg.n_disc), generator=gen, device=dev)
     xd = torch.floor(u * fg.disc_sizes).to(torch.int64)
     state = SMCState(xc, xd, torch.full((N,), -math.log(1.0 * N), device=dev),
                      torch.zeros((), device=dev))
 
     def anneal_step(state, beta_prev, beta, step, delta_lp=None):
-        u0 = torch.rand((), generator=gen, device=dev)
+        u0 = torch.rand((), generator=shared, device=dev)
         state, ess = _reweight_resample(fg, cfg, state, beta_prev, beta, u0,
-                                        delta_lp)
+                                        delta_lp, shard)
         xc, xd, acc = _rejuvenate(fg, cfg, gen, state.xc, state.xd, beta,
                                   step)
+        if shard is not None:
+            acc = all_reduce(acc, shard) / shard.world
+        check_nan("smc temperature", xc=xc, log_w=state.log_w,
+                  log_z=state.log_z)
         return state._replace(xc=xc, xd=xd), ess, acc
 
     ess_tr, acc_tr, beta_tr = [], [], []
@@ -326,8 +360,7 @@ def run_smc(fg: CompiledFG, gen: torch.Generator,
                 acc_tr += [torch.ones((), device=dev)] * skipped
                 beta_tr += [beta_prev] * skipped
                 break
-            delta_lp = (fg.log_prob_batched(state.xc, state.xd)
-                        - _base_log_prob(fg, cfg, state.xc))
+            delta_lp = _delta_lp(fg, cfg, state, shard)
             beta = _choose_beta(state.log_w, delta_lp, beta_prev,
                                 target_log_cess)
             # the cap must never truncate the anneal short of β = 1
@@ -352,7 +385,11 @@ def run_smc(fg: CompiledFG, gen: torch.Generator,
     diag = {"ess": torch.stack(ess_tr), "accept": torch.stack(acc_tr),
             "log_z": state.log_z, "betas": torch.stack(beta_tr),
             "n_temps_used": n_used, "final_step": final_step}
-    return state.xc, state.xd, state.log_w, state.log_z, diag
+    log_w = state.log_w
+    if shard is not None:
+        lo, hi = shard.rows(N)
+        log_w = log_w[lo:hi]
+    return state.xc, state.xd, log_w, state.log_z, diag
 
 
 class SMCResult:

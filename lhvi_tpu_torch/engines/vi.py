@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from lhvi_tpu_torch.fg.compile import CompiledFG, FactorBucket, _expand_params
+from lhvi_tpu_torch.utils.debug import check_nan
 
 _NEG_BIG = -1e30
 
@@ -329,6 +330,8 @@ def _fit_from(fg: CompiledFG, params: VIParams, cfg: VIConfig):
     for i in range(cfg.n_iters):
         opt.zero_grad(set_to_none=True)
         e = elbo(fg, VIParams(*leaves), cfg.n_quad)
+        check_nan("vi.fit step", elbo=e, **dict(zip(VIParams._fields,
+                                                    leaves)))
         (-e).backward()
         opt.step()
         trace[i] = e.detach()

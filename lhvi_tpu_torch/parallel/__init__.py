@@ -1,0 +1,25 @@
+"""Chain and particle sharding of the port over ``torch.distributed``."""
+
+from lhvi_tpu_torch.parallel.mesh import (
+    ChainShard,
+    all_reduce,
+    assemble_rows,
+    chain_sharding,
+    init_distributed,
+    local_count,
+    n_chain_shards,
+    replicas_equal,
+    split_generator,
+)
+
+__all__ = [
+    "ChainShard",
+    "all_reduce",
+    "assemble_rows",
+    "chain_sharding",
+    "init_distributed",
+    "local_count",
+    "n_chain_shards",
+    "replicas_equal",
+    "split_generator",
+]

@@ -162,3 +162,29 @@ def epbp_state_from_numpy(state: dict, device) -> dict:
     out["msgs"] = tuple(_tensor(np.asarray(m, np.float32), device)
                         for m in state["msgs"])
     return out
+
+
+def resumable_payload_from_numpy(payload: dict, device):
+    """``(HMCState, sums)`` from a reference format-4 checkpoint payload of
+    ``engines/resumable.py::sample_checkpointed``, as the JAX
+    ``CheckpointManager`` restores it (numpy arrays).
+
+    ``sums`` is the 17-tuple of accumulators the port's
+    ``resumable.finalize`` reads (the two moment sums, the discrete counts,
+    the acceptance sum, the 9 ``_StreamDiag`` and the 4 ``_StreamDiagDisc``
+    arrays). The entries the reference leaves out because they are empty
+    are rebuilt from the shapes the others give; a missing non-empty entry
+    or another format raises ``ValueError`` as a resume would.
+    """
+    from lhvi_tpu_torch.engines.resumable import unpack_payload
+
+    st, sums = payload["state"], payload["sums"]
+    # the continuous width from the moment sums, the discrete one from the
+    # chains' discrete state, the value count from the counts table, the
+    # monitored discrete latents from their stream (each absent: empty)
+    n_cont = int(np.asarray(sums["0"]).shape[0]) if "0" in sums else 0
+    n_disc = int(np.asarray(st["xd"]).shape[1]) if "xd" in st else 0
+    max_v = int(np.asarray(sums["2"]).shape[1])
+    n_sel = int(np.asarray(sums["13"]).shape[1]) if "13" in sums else 0
+    return unpack_payload(payload, torch.device(device), n_cont, n_disc,
+                          max_v, n_sel, where="reference payload")

@@ -308,17 +308,23 @@ def test_out_of_slice_paths_raise():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports in a fresh interpreter without
-    pulling in jax, flax or the JAX package: the guard that keeps
-    chip_smoke.py runnable where JAX is not installed."""
+    """Every module of the port (the runtime's too: config, the
+    checkpoints, diagnostics, metrics and NaN checks, resumable sampling,
+    the sharding over torch.distributed) imports in a fresh interpreter
+    without pulling in jax, flax, orbax or the JAX package: the guard that
+    keeps chip_smoke.py runnable where JAX is not installed."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import lhvi_tpu_torch, lhvi_tpu_torch.engines.hmc\n"
+        "import lhvi_tpu_torch.config, lhvi_tpu_torch.engines.resumable\n"
+        "import lhvi_tpu_torch.parallel.mesh, lhvi_tpu_torch.utils.checkpoint\n"
+        "import lhvi_tpu_torch.utils.diagnostics, lhvi_tpu_torch.utils.metrics\n"
+        "import lhvi_tpu_torch.utils.debug\n"
         "for m in pkgutil.walk_packages(lhvi_tpu_torch.__path__,"
         " 'lhvi_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax', 'optax', 'lhvi_tpu'))\n"
+        " ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lhvi_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"

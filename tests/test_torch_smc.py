@@ -252,13 +252,17 @@ def test_smc_banded_grid_through_dia_move():
 
 
 def test_out_of_slice_paths_raise():
-    """A sharded particle axis is Slice 10's and raises; ``mode_swap``
-    runs (without a discrete class it warns and anneals as without it)."""
+    """A particle count that does not divide over the ranks of a sharded
+    particle axis raises before any collective (the port has no gathered
+    fallback); ``mode_swap`` runs (without a discrete class it warns and
+    anneals as without it)."""
+    from lhvi_tpu_torch.parallel import ChainShard
+
     g, *_ = lds.kalman_lds(T=3, seed=0)
     fg = lt.compile_graph(g, "cpu")
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="Slice 10"):
-        smc.run_smc(fg, gen, smc.SMCConfig(), shard=object())
+    with pytest.raises(ValueError, match="do not divide over 3 ranks"):
+        smc.run_smc(fg, gen, smc.SMCConfig(), shard=ChainShard(0, 3))
     with pytest.warns(UserWarning, match="no-op"):
         xc, *_ = smc.run_smc(fg, gen, smc.SMCConfig(n_particles=16, n_temps=3,
                                                     mode_swap=True))

@@ -96,14 +96,32 @@ Phases (any failure raises and the script exits non-zero):
    runs of each rank's stream, sharded ``run_hmc`` and ``run_nuts`` with
    adaptation (step size and mass identical on both ranks), sharded
    ``run_smc`` on ``kalman_lds(T=20)`` at 65,536 particles (both
-   schedules, K4 on each rank); the engine comparison
+   schedules, K4 on each rank), the multi-rank dry run
+   (``dryrun_steps``: the VI Adam step on the factor rows sharded over
+   the ranks against the unsharded step, one dp-sharded step of SMC,
+   NUTS and HMC, the pod path with the mode-swap move, the banded route
+   with ``dia_kernel`` on and off; then the tp-sharded and unsharded VI
+   step rates), and the sharded runs through K2 and K5 (``owed_checks``:
+   the 128×128 grid at 2 × 512 chains and ``robot_map(100)`` at 2 ×
+   8,192 equal to the pooled rank runs, the ranks' first banded
+   proposals from one start differing in every row, ``hybrid_chain``
+   fused against its closed forms); the engine comparison
    (``examples/torch_run_engine_comparison.py --model chain --quick``,
    then the ladders, each engine held to the bound of the reference's
-   own test on ``hybrid_chain`` at the largest budget it ran). Each
+   own test on ``hybrid_chain`` at the largest budget it ran); the SMC
+   path's banded anchor (``smc_banded_anchor``: the weak 64×64 grid,
+   1,024 particles, adaptive, K2 in every move, against a sparse LU);
+   the pod-scale example (``--phase pod_scale_example``:
+   ``examples/torch_run_pod_scale.py --fast`` at 320 people as two ranks
+   under ``torch.distributed.run``, alone on the card, its JSONL checked)
+   and the example scripts at their defaults (``--phase examples``, all at
+   once, the pod-scale one as one process among them, each against its
+   engine's bound; the scripts' launches happen in their own processes
+   and are not counted here). Each
    is held to exact answers (numpy/scipy oracles, closed forms) or to its
    plain route, and the bench's throughputs are printed (the VI, pod,
-   mode-swap and BP rates again on ``[rates]`` lines; one phase alone:
-   ``python3 chip_smoke.py --phase NAME``).
+   mode-swap, BP, sharded and example rates again on ``[rates]`` lines;
+   one phase alone: ``python3 chip_smoke.py --phase NAME``).
 
 The last three lines are the kernels' JSON record (each kernel's error,
 times, launches on its path and its bound on this card from this run's
@@ -1399,6 +1417,108 @@ def exact_gaussian(fg):
     return log_z, mean, np.diag(np.linalg.inv(J))
 
 
+def weak_grid(rows, cols, seed=0, csig=16.0, evidence_frac=0.1):
+    """``tests/test_ell_oracle.py:97-119``'s weakly coupled evidence grid,
+    the reference's SMC-at-scale target, built with the port's DSL from
+    the same numpy stream (so one seed gives one graph in both)."""
+    import numpy as np
+
+    from lhvi_tpu_torch import Domain, F, Graph, RV
+    from lhvi_tpu_torch.potentials import (GaussianPotential,
+                                           LinearGaussianPotential)
+
+    rng = np.random.default_rng(seed)
+    dom = Domain([-30, 30], continuous=True)
+    rvs = [[RV(dom, name=f"x{r}_{c}") for c in range(cols)]
+           for r in range(rows)]
+    fs = []
+    for r in range(rows):
+        for c in range(cols):
+            mu = float(rng.normal(0.0, 1.0))
+            fs.append(F(GaussianPotential([mu], [[1.0]]), [rvs[r][c]]))
+            if rng.uniform() < evidence_frac:
+                rvs[r][c].value = float(rng.normal(mu, 1.0))
+            if c + 1 < cols:
+                fs.append(F(LinearGaussianPotential(coeff=1.0, sig=csig),
+                            [rvs[r][c], rvs[r][c + 1]]))
+            if r + 1 < rows:
+                fs.append(F(LinearGaussianPotential(coeff=1.0, sig=csig),
+                            [rvs[r][c], rvs[r + 1][c]]))
+    return Graph([rv for row in rvs for rv in row], fs)
+
+
+def sparse_lu_means(g, fg):
+    """Exact posterior means of ``g``'s latents, in ``fg``'s latent order,
+    from a sparse LU of the O(E) information form
+    (``engines/gabp.py::sparse_information_form``, scipy):
+    ``tests/test_ell_oracle.py:28-41``'s oracle."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from lhvi_tpu_torch.engines.gabp import sparse_information_form
+
+    Jd, h, off, latents = sparse_information_form(g)
+    n = len(latents)
+    items = list(off.items())
+    rows = np.array([k[0] for k, _ in items] + list(range(n)))
+    cols = np.array([k[1] for k, _ in items] + list(range(n)))
+    vals = np.array([v for _, v in items] + list(Jd))
+    mean = spla.splu(sp.csc_matrix((vals, (rows, cols)), shape=(n, n))).solve(
+        np.asarray(h, np.float64))
+    out = np.empty(n)
+    out[[fg.meta.loc(rv)[1] for rv in latents]] = mean
+    return out
+
+
+def smc_banded_anchor(dev, smi, rows=64, N=1024, quad_max_n=1024):
+    """``tests/test_ell_oracle.py:122-150`` on the card: adaptive SMC on the
+    weak ``rows``×``rows`` grid (3,645 latents at 64), ``quad_max_n=1024``
+    so the banded move (K2 inside ``smc.move_quad_sparse``, K4 each
+    temperature) carries it, against the sparse LU: weighted means within
+    0.08 on average and 0.30 at worst, log Z finite."""
+    import numpy as np
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import smc
+    from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
+    from lhvi_tpu_torch.ops.resample import weight_pipeline
+
+    g = weak_grid(rows, rows)
+    fg = compile_graph(g, dev, quad_max_n=quad_max_n)
+    assert fg.quad_sparse and fg.quad_dia_offsets is not None
+    mean_exact = sparse_lu_means(g, fg)
+    cfg = smc.SMCConfig(n_particles=N, n_temps=20, n_moves=2, n_leapfrog=10,
+                        step_size=0.12, base_scale=1.5, adaptive=True)
+    k2, k4 = dia_hmc_proposal.launches, weight_pipeline.launches
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xc, _, log_w, log_z, diag = smc.run_smc(
+        fg, torch.Generator(dev).manual_seed(4), cfg)
+    w = torch.softmax(log_w.double(), 0)
+    mean = (w[:, None] * xc.double()).sum(0).cpu().numpy()
+    dt = time.perf_counter() - t0
+    k2 = dia_hmc_proposal.launches - k2
+    k4 = weight_pipeline.launches - k4
+    used = int(diag["n_temps_used"])
+    err = np.abs(mean - mean_exact)
+    rate = N * used / dt
+    log(f"[smc] banded anchor: weak {rows}x{rows} grid ({fg.n_cont} latents), "
+        f"{N} particles, adaptive, {used} temperatures (K2 launches {k2}, K4 "
+        f"launches {k4}): mean err mean {err.mean():.4f} (< 0.08) max "
+        f"{err.max():.4f} (< 0.30) against the sparse LU, log Z "
+        f"{float(log_z):.4f}, mean accept "
+        f"{float(diag['accept'][:used].mean()):.4f}; {rate:.6g} "
+        f"particle-temperatures/s ({dt:.2f} s) on {smi}")
+    if not (err.mean() < 0.08 and err.max() < 0.30
+            and np.isfinite(float(log_z))
+            and (k2 > 0) == (torch.device(dev).type == "cuda")):
+        raise AssertionError("banded SMC off the sparse LU oracle")
+    return rate
+
+
 def phase_smc(dev, smi, N=65536):
     import numpy as np
     import torch
@@ -1457,7 +1577,7 @@ def phase_smc(dev, smi, N=65536):
         f"{k4:.4g}) on {smi}; log Z "
         f"{lz[-1]:.4f} against the closed form {log_z:.4f} (err "
         f"{abs(lz[-1] - log_z):.4f})")
-    return rate
+    return rate, smc_banded_anchor(dev, smi)
 
 
 def run_and_time(hmc, fg, cfg, dev, n_chains, n_samples):
@@ -2335,11 +2455,236 @@ def phase_resume(dev, smi, C=65536, C_big=1024, rows=128, C_hybrid=16384,
     return rates
 
 
+def dryrun_steps(dev, dp, tp, n_pod=40, rows=8, vi_people=40, vi_steps=50):
+    """The port's counterpart of ``dryrun_multichip``
+    (``__graft_entry__.py:45-202``): one step of every backend under a
+    (dp, tp) layout of process groups, through public entry points. ``dp``
+    and ``tp`` are this rank's ``ChainShard``s (one group may be both).
+    VI takes an Adam step with every bucket's rows sharded over ``tp``
+    (``friends_smokers(6, hybrid=True)``, ``pad_to=max(8, tp)``), held to
+    the unsharded step; HMC, NUTS and SMC run a few steps with the chains
+    sharded over ``dp``; the pod path (``fast_compile`` of
+    ``friends_smokers(n_pod)``, 8 observed smokers) runs with the mode-swap
+    move; the banded route (``gaussian_grid(rows, rows)`` with
+    ``quad_max_n=16``) with ``dia_kernel`` on and off. Then the tp-sharded
+    and unsharded VI step rates on the grounded
+    ``friends_smokers(vi_people)``. Returns what the caller checks."""
+    import dataclasses
+
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import hmc, nuts, smc, vi
+    from lhvi_tpu_torch.models.relational import friends_smokers
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+    from lhvi_tpu_torch.parallel import replicas_equal, shard_fg_factors
+    from lhvi_tpu_torch.relational.fast import fast_compile
+
+    def gen(seed):
+        return torch.Generator(dev).manual_seed(seed)
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(torch.as_tensor(t)).all()) for t in ts)
+
+    out = {}
+    g, _ = friends_smokers(n_people=6, hybrid=True).ground()
+    fg = compile_graph(g, dev, pad_to=max(8, tp.world))
+    cfg = vi.VIConfig(K=2, n_quad=5, n_iters=1, lr=1e-2)
+    p0 = vi.init_params(fg, gen(0), cfg)
+    p_tp, tr_tp = vi._fit_from(shard_fg_factors(fg, tp), p0, cfg)
+    p_1, tr_1 = vi._fit_from(fg, p0, cfg)
+    out["vi"] = {
+        "loss": -float(tr_tp[0]), "loss_whole": -float(tr_1[0]),
+        "param_diff": max(float((a - b).abs().max() / (1 + b.abs().max()))
+                          for a, b in zip(p_tp, p_1) if b.numel()),
+        "same": all(replicas_equal(p, tp) for p in p_tp)}
+
+    kw = dict(n_chains=4 * dp.world, n_warmup=2, n_samples=2,
+              collect="moments", shard=dp)
+    scfg = smc.SMCConfig(n_particles=8 * dp.world, n_temps=3, n_moves=1,
+                         n_leapfrog=2, adaptive=True)
+    sxc, _, _, slz, _ = smc.run_smc(fg, gen(2), scfg, shard=dp)
+    m, _, d = nuts.run_nuts(fg, gen(3), nuts.NUTSConfig(
+        max_depth=3, init_step_size=0.05), **kw)
+    hm, _, hd = hmc.run_hmc(fg, gen(4), hmc.HMCConfig(
+        n_leapfrog=3, init_step_size=0.05), **kw)
+    out["dp"] = finite(slz, sxc, d["accept_rate"], m["mean"],
+                       hd["accept_rate"], hm["mean"])
+
+    rg = friends_smokers(n_people=n_pod, hybrid=True)
+    for i in range(8):
+        rg.observe("smokes", (f"p{i}",), i % 2)
+    pod = fast_compile(rg, dev)
+    pm, _, pd = hmc.run_hmc(
+        pod, gen(5), hmc.HMCConfig(n_leapfrog=2, init_step_size=0.05,
+                                   adapt_mass=False, mode_swap=True),
+        n_chains=2 * dp.world, n_warmup=1, n_samples=4, collect="moments",
+        shard=dp)
+    out["pod"] = {
+        "plan": pod.color_plan is not None,
+        "finite": finite(pd["accept_rate"], pd["mode_swap_accept"],
+                         pm["mean"], pd["rhat"], pd["rhat_disc"]),
+        "n_rhat_disc": int(pd["rhat_disc"].numel()),
+        "ms_accept": float(pd["mode_swap_accept"])}
+
+    g, _ = gaussian_grid(rows=rows, cols=rows, seed=0, evidence_frac=0.1)
+    fge = compile_graph(g, dev, quad_max_n=16)  # force the sparse form
+    out["banded"] = {"dia": (fge.quad_sparse and fge.cont_pure_quad
+                             and fge.quad_dia_offsets is not None)}
+    for dia_on in (True, False):
+        _, _, ed = hmc.run_hmc(
+            fge, gen(6), hmc.HMCConfig(n_leapfrog=3, init_step_size=0.05,
+                                       adapt_mass=False, dia_kernel=dia_on),
+            n_chains=2 * dp.world, n_warmup=1, n_samples=2,
+            collect="moments", shard=dp)
+        out["banded"][dia_on] = finite(ed["accept_rate"])
+
+    # the tp-sharded VI step against the unsharded one, timed
+    g, _ = friends_smokers(n_people=vi_people, hybrid=True).ground()
+    fg = compile_graph(g, dev, pad_to=max(8, tp.world))
+    cfg = vi.VIConfig(K=4, n_quad=7, n_iters=vi_steps)
+    p0 = vi.init_params(fg, gen(7), cfg)
+    rates = {}
+    for name, fgr in (("tp", shard_fg_factors(fg, tp)), ("whole", fg)):
+        vi._fit_from(fgr, p0, dataclasses.replace(cfg, n_iters=2))
+        t0 = time.perf_counter()
+        _, tr = vi._fit_from(fgr, p0, cfg)
+        float(tr[-1])
+        rates[name] = (vi_steps / (time.perf_counter() - t0), float(tr[-1]))
+    out["vi_rate"] = {"n_rows": sum(b.n_factors for b in fg.buckets),
+                      **rates}
+    return out
+
+
+def host_moments(m):
+    """A moments dict with its tensors copied to host numpy arrays."""
+    import torch
+
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in m.items()}
+
+
+def pooled_diff(sh, loc):
+    """A sharded run's moments ``sh`` against the pooled unsharded runs of
+    each rank's chains ``loc`` → (discrete counts equal, mean difference,
+    variance difference). Each difference is relative to the largest term
+    the f32 sums behind it hold: the rank means (and the pooled mean) for
+    the mean, the rank second moments for the variance. Where the ranks'
+    means cancel, the pooled mean is far smaller than its terms, and their
+    f32 rounding alone would exceed 1e-5 of it."""
+    import numpy as np
+
+    world = len(loc)
+    n_obs = sh["n_obs"]
+    counts = np.rint(sh["disc_probs"] * n_obs)
+    pooled = sum(np.rint(x["disc_probs"] * x["n_obs"]) for x in loc)
+    means = [x["mean"].astype(np.float64) for x in loc]
+    seconds = [x["var"].astype(np.float64) + m ** 2 for x, m in zip(loc, means)]
+    mean = sum(means) / world
+    var = sum(seconds) / world - mean ** 2
+    scale_m = np.maximum(np.max(np.abs(means), axis=0), np.abs(mean))
+    scale_v = np.max(seconds, axis=0)
+    dm = float(np.max(np.abs(sh["mean"] - mean) / np.maximum(scale_m, 1e-6)))
+    dv = float(np.max(np.abs(sh["var"] - var) / np.maximum(scale_v, 1e-6)))
+    return bool(np.array_equal(counts, pooled)), dm, dv
+
+
+def owed_checks(dev, shard, rows=128, quad_max_n=4096, C=1024, S=20,
+                C_hybrid=16384, hybrid_steps=(50, 200, 300), C_robot=16384,
+                S_robot=20):
+    """The sharded runs through K2 and K5 (one rank's part). K2: the banded
+    ``gaussian_grid(rows, rows)`` at ``C`` chains, adaptation off, sharded
+    and this rank's unsharded run of its own stream; one proposal from a
+    start shared by the ranks, its momenta drawn from the rank's generator
+    (the ranks' ``x1`` must differ). K5 (``fused_logpot=True``):
+    ``hybrid_chain`` sharded with adaptation off beside this rank's run,
+    then sharded with adaptation against the closed forms
+    (``hybrid_steps``: samples of the first run, warmup and samples of the
+    second);
+    ``robot_map(100)`` at ``C_robot`` chains sharded beside this rank's
+    run. Returns what the parent checks."""
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import hmc
+    from lhvi_tpu_torch.models.toy import gaussian_grid, hybrid_chain
+    from lhvi_tpu_torch.ops.dia import _KEY_TAG, dia_hmc_proposal
+    from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
+    from lhvi_tpu_torch.parallel import all_reduce, split_generator
+
+    def gen(seed):
+        return torch.Generator(dev).manual_seed(seed)
+
+    def pair(fg, cfg, seed, n_chains, n_samples):
+        """(sharded moments, this rank's unsharded moments, launches of
+        the sharded run's K2 and K5, its seconds after a warm run)."""
+        kw = dict(n_warmup=0, collect="moments", stream_diag=False)
+        m1, _, _ = hmc.run_hmc(fg, gen(seed + 100), cfg, n_chains=n_chains,
+                               n_samples=2, shard=shard, **kw)
+        float(m1["mean"][0])
+        k2, k5 = dia_hmc_proposal.launches, logpot_leapfrog.launches
+        t0 = time.perf_counter()
+        m1, _, _ = hmc.run_hmc(fg, gen(seed), cfg, n_chains=n_chains,
+                               n_samples=n_samples, shard=shard, **kw)
+        float(m1["mean"][0])
+        dt = time.perf_counter() - t0
+        k2 = dia_hmc_proposal.launches - k2
+        k5 = logpot_leapfrog.launches - k5
+        m0, _, _ = hmc.run_hmc(fg, split_generator(gen(seed), shard.rank)[0],
+                               cfg, n_chains=n_chains // shard.world,
+                               n_samples=n_samples, **kw)
+        return {"sharded": host_moments(m1), "local": host_moments(m0),
+                "k2": k2, "k5": k5, "s": dt}
+
+    out = {}
+    g, _ = gaussian_grid(rows, rows, seed=1, evidence_frac=0.05)
+    fg = compile_graph(g, dev, quad_max_n=quad_max_n)
+    assert fg.quad_sparse and hmc._use_dia(fg, hmc.HMCConfig())
+    cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.05, adapt_mass=False)
+    out["k2"] = pair(fg, cfg, 7, C, S)
+    # one proposal from a start every rank shares: only the momenta differ
+    rank_gen = split_generator(gen(8), shard.rank)[0]
+    x0, _ = fg.init_state_batched(gen(9), C // shard.world)
+    x1, log_acc = dia_hmc_proposal(
+        rank_gen, x0, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w,
+        fg.quad_h, torch.ones(fg.n_cont, device=dev), 0.05, 6,
+        pos=fg.quad_dia_pos, inv=fg.quad_dia_inv)
+    same = torch.all(all_reduce(x1, shard, "max") == -all_reduce(
+        -x1, shard, "max"), dim=1)
+    out["k2"].update(rows_equal=int(same.sum()), rows=int(x1.shape[0]),
+                     finite=bool(torch.isfinite(log_acc).any()),
+                     seed=rank_gen.initial_seed() ^ _KEY_TAG)
+
+    g, (d, x1_, x2_) = hybrid_chain()
+    fgh = compile_graph(g, dev)
+    out["hybrid"] = pair(fgh, hmc.HMCConfig(init_step_size=0.2,
+                                            fused_logpot=True), 10, C_hybrid,
+                         hybrid_steps[0])
+    k5 = logpot_leapfrog.launches
+    m, _, diag = hmc.run_hmc(fgh, gen(11), hmc.HMCConfig(
+        init_step_size=0.2, fused_logpot=True), n_chains=C_hybrid,
+        n_warmup=hybrid_steps[1], n_samples=hybrid_steps[2],
+        collect="moments", shard=shard)
+    out["hybrid"]["exact"] = {
+        "k5": logpot_leapfrog.launches - k5,
+        "pd": float(m["disc_probs"][fgh.meta.loc(d)[1], 1]),
+        "x1": float(m["mean"][fgh.meta.loc(x1_)[1]]),
+        "x2": float(m["mean"][fgh.meta.loc(x2_)[1]]),
+        "step": float(diag["step_size"])}
+    fgr, _ = robot_fg(dev)
+    out["robot"] = pair(fgr, hmc.HMCConfig(n_leapfrog=8, init_step_size=0.05,
+                                           fused_logpot=True), 12, C_robot,
+                        S_robot)
+    return out
+
+
 def sharded_checks(dev, shard, C=65536, N=65536, S=50, steps=(100, 100)):
     """One rank's part of the two-rank path (``rank_worker``): sharded
     ``run_hmc`` with adaptation off beside this rank's unsharded run from
     its own stream, sharded ``run_hmc`` and ``run_nuts`` with adaptation,
-    sharded ``run_smc`` on ``kalman_lds(T=20)`` with both schedules.
+    sharded ``run_smc`` on ``kalman_lds(T=20)`` with both schedules, the
+    dry-run step list (``dryrun_steps``, both ranks on ``dp`` and on
+    ``tp``) and the sharded runs through K2 and K5 (``owed_checks``).
     Returns what the parent checks."""
     import numpy as np
     import torch
@@ -2356,10 +2701,6 @@ def sharded_checks(dev, shard, C=65536, N=65536, S=50, steps=(100, 100)):
     def sync():
         if torch.device(dev).type == "cuda":
             torch.cuda.synchronize()
-
-    def np_(m):
-        return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
-                for k, v in m.items()}
 
     out = {}
     g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
@@ -2378,7 +2719,8 @@ def sharded_checks(dev, shard, C=65536, N=65536, S=50, steps=(100, 100)):
     dt = time.perf_counter() - t0
     m0, _, d0 = hmc.run_hmc(fg, split_generator(gen(0), shard.rank)[0], off,
                             n_chains=C // shard.world, n_samples=S, **kw)
-    out["off"] = {"sharded": np_(m1), "local": np_(m0), "s": dt,
+    out["off"] = {"sharded": host_moments(m1), "local": host_moments(m0),
+                  "s": dt,
                   "acc": (float(d1["accept_rate"]), float(d0["accept_rate"]))}
     for name, run, cfg in (
             ("hmc", hmc.run_hmc, hmc.HMCConfig(n_leapfrog=8,
@@ -2410,7 +2752,22 @@ def sharded_checks(dev, shard, C=65536, N=65536, S=50, steps=(100, 100)):
             "lz": float(lz), "rows": int(lw.shape[0]),
             "n_used": int(d["n_temps_used"]),
             "same": replicas_equal(torch.stack([lz, d["final_step"]]), shard)}
+    out["dryrun"] = dryrun_steps(dev, shard, shard)
+    out["owed"] = owed_checks(dev, shard)
     return out
+
+
+def rank_counters() -> dict:
+    """The launch counters of the kernels the two-rank path reaches."""
+    from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
+    from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
+    from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
+    from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
+    from lhvi_tpu_torch.ops.resample import weight_pipeline
+
+    return {"quad_leapfrog": quad_leapfrog, "dia_proposal": dia_hmc_proposal,
+            "nuts_traj": nuts_trajectory, "weights": weight_pipeline,
+            "logpot_leapfrog": logpot_leapfrog}
 
 
 def rank_worker(rank: int, world: int, port: int, out: str) -> int:
@@ -2424,15 +2781,11 @@ def rank_worker(rank: int, world: int, port: int, out: str) -> int:
     import torch.distributed as dist
 
     import lhvi_tpu_torch  # noqa: F401  (turns TF32 off)
-    from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
-    from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
-    from lhvi_tpu_torch.ops.resample import weight_pipeline
     from lhvi_tpu_torch.parallel import init_distributed
 
     torch.cuda.set_device(0)
     shard = init_distributed("gloo", f"tcp://127.0.0.1:{port}", rank, world)
-    counters = {"quad_leapfrog": quad_leapfrog, "nuts_traj": nuts_trajectory,
-                "weights": weight_pipeline}
+    counters = rank_counters()
     for c in counters.values():
         c.launches = 0
     res = sharded_checks(torch.device("cuda", 0), shard)
@@ -2546,7 +2899,93 @@ def check_ranks(res, smi, C=65536, N=65536, S=50, log_z=-3.81307):
     log(f"[runtime] sharded grid10x10: "
         f"{rates['sharded_grid10x10_chain_samples_per_s']:.6g} "
         f"chain-samples/s over two ranks on one card on {smi}")
+    rates.update(check_dryrun([r["dryrun"] for r in res], smi))
+    rates.update(check_owed([r["owed"] for r in res], smi))
     return rates, launches
+
+
+def check_dryrun(res, smi):
+    """The parent's checks of ``dryrun_steps`` (every rank's results) →
+    rates: the VI step on the sharded factor rows takes the unsharded
+    step (the ELBO at rtol 1e-5, the same parameters on every rank), and
+    every dp-sharded step ends finite."""
+    import math
+
+    a = res[0]
+    vi = a["vi"]
+    log(f"[dryrun] tp-sharded VI Adam step on friends_smokers(6) over "
+        f"{len(res)} ranks: loss {vi['loss']:.6g} (unsharded "
+        f"{vi['loss_whole']:.6g}), parameters against the unsharded step "
+        f"{vi['param_diff']:.3e} of their scale, identical on the ranks "
+        f"{[r['vi']['same'] for r in res]}")
+    if not (math.isfinite(vi["loss"])
+            and abs(vi["loss"] - vi["loss_whole"]) <= 1e-5 * abs(
+                vi["loss_whole"]) and vi["param_diff"] < 1e-4
+            and all(r["vi"]["same"] for r in res)):
+        raise AssertionError("the tp-sharded VI step is not the unsharded one")
+    log(f"[dryrun] dp-sharded SMC, NUTS and HMC steps finite "
+        f"{[r['dp'] for r in res]}; pod path with the mode-swap move: plan "
+        f"{a['pod']['plan']}, mode_swap_accept {a['pod']['ms_accept']:.4f}, "
+        f"rhat_disc over {a['pod']['n_rhat_disc']} latents, finite "
+        f"{[r['pod']['finite'] for r in res]}; banded route (DIA "
+        f"{a['banded']['dia']}) finite with dia_kernel True "
+        f"{[r['banded'][True] for r in res]} and False "
+        f"{[r['banded'][False] for r in res]}")
+    if not all(r["dp"] and r["pod"]["plan"] and r["pod"]["finite"]
+               and r["pod"]["n_rhat_disc"] > 0 and r["banded"]["dia"]
+               and r["banded"][True] and r["banded"][False] for r in res):
+        raise AssertionError("a dp-sharded dry-run step failed")
+    vr = a["vi_rate"]
+    log(f"[dryrun] VI steps/s on friends_smokers(40) grounded "
+        f"({vr['n_rows']} factor rows), K=4, n_quad=7: tp-sharded over "
+        f"{len(res)} ranks on one card {vr['tp'][0]:.6g}, unsharded "
+        f"{vr['whole'][0]:.6g} (last ELBO {vr['tp'][1]:.6g} and "
+        f"{vr['whole'][1]:.6g}) on {smi}")
+    if abs(vr["tp"][1] - vr["whole"][1]) > 1e-4 * abs(vr["whole"][1]):
+        raise AssertionError("tp-sharded and unsharded VI fits diverged")
+    return {"vi_tp_steps_per_s": vr["tp"][0],
+            "vi_untp_steps_per_s": vr["whole"][0]}
+
+
+def check_owed(res, smi, C=1024, S=20, C_robot=16384, S_robot=20):
+    """The parent's checks of ``owed_checks`` → rates. Every sharded run
+    launched its kernel on each rank and equals the pooled rank runs
+    (``pooled_diff``: counts exactly, moments within 1e-5); the ranks'
+    first banded proposals from one start differ in every row, their K2
+    seeds differ; ``hybrid_chain`` sharded through K5 meets
+    ``phase_robot``'s closed-form bounds."""
+    for name, kernel in (("k2", "K2"), ("hybrid", "K5"), ("robot", "K5")):
+        per = [r[name][kernel.lower()] for r in res]
+        eq, dm, dv = pooled_diff(res[0][name]["sharded"],
+                                 [r[name]["local"] for r in res])
+        agree = all((res[0][name]["sharded"][k] == r[name]["sharded"][k]).all()
+                    for r in res for k in ("mean", "var"))
+        log(f"[owed] sharded {name} against the pooled rank runs: {kernel} "
+            f"launches per rank {per}, counts equal {eq}, mean diff {dm:.3e}, "
+            f"var diff {dv:.3e} (1e-5), ranks agree {agree}")
+        if not (min(per) > 0 and eq and dm < 1e-5 and dv < 1e-5 and agree):
+            raise AssertionError(f"sharded {name} is not the pooled rank runs")
+    k2 = [r["k2"] for r in res]
+    log(f"[owed] banded proposal from one start on {len(res)} ranks: rows "
+        f"equal across ranks {k2[0]['rows_equal']} of {k2[0]['rows']}; K2 "
+        f"seeds {[hex(r['seed']) for r in k2]}")
+    if not (k2[0]["rows_equal"] == 0 and len({r["seed"] for r in k2})
+            == len(k2) and all(r["finite"] for r in k2)):
+        raise AssertionError("ranks drew the same banded momenta")
+    e = res[0]["hybrid"]["exact"]
+    log(f"[owed] sharded hybrid_chain through K5 (K5 launches {e['k5']}, "
+        f"step {e['step']:.4g}): P(d=1) {e['pd']:.4f} (0.7), E[x1] "
+        f"{e['x1']:.4f} (0.3333), E[x2] {e['x2']:.4f} (0.2667)")
+    if not (e["k5"] > 0 and abs(e["pd"] - 0.7) < 0.01
+            and abs(e["x1"] - 1 / 3) < 0.02 and abs(e["x2"] - 4 / 15) < 0.02):
+        raise AssertionError("sharded hybrid_chain off its closed forms")
+    rates = {"sharded_grid128x128_chain_samples_per_s":
+             C * S / max(r["k2"]["s"] for r in res),
+             "sharded_robot100_chain_samples_per_s":
+             C_robot * S_robot / max(r["robot"]["s"] for r in res)}
+    for k, v in rates.items():
+        log(f"[owed] {k} {v:.6g} over two ranks on one card on {smi}")
+    return rates
 
 
 # the bounds of the reference's own tests on hybrid_chain (tests/test_vi.py,
@@ -2620,13 +3059,234 @@ def phase_comparison(smi, extra=()):
         raise AssertionError(f"engine comparison out of bounds: {bad}")
 
 
+def run_scripts(runs, timeout=900):
+    """Start every ``(label, argv)`` of ``runs`` at once (each writes JSONL
+    records to the path after its ``--metrics-path``), wait for all, stop
+    any left → ``{label: (its own seconds, records, output)}``; a non-zero
+    exit fails."""
+    import json as _json
+    import os
+    import tempfile
+
+    procs = []
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for label, argv in runs:
+            fh = tempfile.TemporaryFile(mode="w+")
+            procs.append((label, argv, fh, subprocess.Popen(
+                argv, stdout=fh, stderr=subprocess.STDOUT, text=True)))
+        done = {}
+        while len(done) < len(procs):
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"scripts still running after {timeout} "
+                                     f"s: {[p[0] for p in procs if p[0] not in done]}")
+            for label, _, _, p in procs:
+                if label not in done and p.poll() is not None:
+                    done[label] = time.perf_counter() - t0
+            time.sleep(0.2)
+        for label, argv, fh, p in procs:
+            fh.seek(0)
+            text = fh.read()
+            if p.returncode != 0:
+                raise AssertionError(f"{label} exited {p.returncode}:\n"
+                                     f"{text[-3000:]}")
+            path = argv[argv.index("--metrics-path") + 1]
+            with open(path) as rec:
+                out[label] = (done[label], [_json.loads(line) for line in rec],
+                              text)
+            os.remove(path)
+    finally:  # every process this phase started is stopped
+        for _, _, fh, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            fh.close()
+    return out
+
+
+def pod_example_args(n_people=320, C=128):
+    """``examples/torch_run_pod_scale.py``'s arguments on the card: the
+    320-person model at full width (``--fast``), the depth cut to 200
+    lifted VI steps (of 2,000), a warm and two timed runs of 4 samples a
+    probe, 4 warmup + 8 samples of production run (of 500 + 1,000) in
+    chunks of 4."""
+    return ["--fast", "--n-people", str(n_people), "--n-chains", str(C),
+            "--vi-iters", "200", "--n-warmup", "4", "--n-samples", "8",
+            "--chunk", "4"]
+
+
+def check_pod_example(label, dt, recs, smi):
+    """The pod-scale example's JSONL records → rates: the lifted VI's
+    cancer marginals within 0.01 of σ(1.2) and 1/2 (``cancer_errors``'
+    bound), the HMC's within 5 standard errors of its draws, finite
+    streamed R̂ and ``rhat_disc`` (and, where the production run ran, its
+    R̂, ``rhat_disc`` and mode-swap acceptance); the two-rank ``scaling``
+    figure printed as what it is on one card, time-slicing."""
+    import math
+
+    by = {}
+    for r in recs:
+        by.setdefault(r["event"], []).append(r)
+    q = {(r["method"], r["rv"]): r for r in by["query"]}
+    vi_err = [abs(q[("lifted_vi", f"cancer({who})")]["marginal"][1] - want)
+              for who, want in (("p1", SIGMA_1_2), ("p0", 0.5))]
+    z = []
+    for who, want in (("p1", SIGMA_1_2), ("p0", 0.5)):
+        r = q[("hmc", f"cancer({who})")]
+        se = math.sqrt(want * (1 - want) / r["n_draws"])
+        z.append(abs(r["marginal"][1] - want) / se)
+    conv = by["convergence"]
+    tput = {r["config"]: r["samples_per_s"] for r in by["throughput"]}
+    fin = [c["rhat_max"] for c in conv] + [c["rhat_disc_max"] for c in conv]
+    prod = by.get("production_run", [None])[0]
+    if prod is not None:
+        fin += [prod["rhat_max"], prod["rhat_disc_max"],
+                prod["mode_swap_accept"]]
+    log(f"[pod_scale_example] {label}: {dt:.1f} s; fast_compile "
+        f"{by['fast_compile'][0]['n_cont']} + {by['fast_compile'][0]['n_disc']}"
+        f" latents; lifted VI cancer err {vi_err[0]:.4f} / {vi_err[1]:.4f} "
+        f"(bound 0.01); HMC cancer {z[0]:.2f} / {z[1]:.2f} SE (bound 5); "
+        f"chain-samples/s {tput}; convergence "
+        f"{[(c['config'], c['rhat_max'], c['rhat_disc_max']) for c in conv]}"
+        + ("" if prod is None else
+           f"; production run {prod['wall_s']} s, rhat_max "
+           f"{prod['rhat_max']}, rhat_disc_max {prod['rhat_disc_max']}, "
+           f"mode_swap_accept {prod['mode_swap_accept']}") + f" on {smi}")
+    if not (max(vi_err) < 0.01 and max(z) < 5 and all(
+            v is not None and math.isfinite(v) for v in fin)
+            and (prod is None or by["checkpoint"])):
+        raise AssertionError(f"pod-scale example ({label}) off")
+    if "scaling" in by:
+        s = by["scaling"][0]
+        log(f"[pod_scale_example] two ranks time-slicing one card (not "
+            f"scaling): throughput ratio against one rank {s['efficiency']} "
+            f"({s['devices']} ranks, {s['cards']} card)")
+    tag = label.split()[0]
+    return {f"pod_example_{tag}_{config}_chain_samples_per_s": v
+            for config, v in tput.items()}
+
+
+def phase_pod_scale_example(smi, extra=()):
+    """``examples/torch_run_pod_scale.py`` on the card as two ranks on
+    ``cuda:0`` under ``torch.distributed.run`` (gloo: NCCL takes one rank
+    a card), alone on the card (``pod_example_args``): the chains sharded
+    over the ranks, the one-rank probe (rank 0 alone, the other rank
+    waiting), the production run through ``sample_checkpointed(shard=…)``
+    and the VI checkpoint; checked by ``check_pod_example``. The
+    one-process run is in ``phase_examples``."""
+    import os
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="lhvi_pod_")
+    label = "two ranks"
+    try:
+        res = run_scripts([(label, [
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "2",
+            os.path.join(here, "examples", "torch_run_pod_scale.py"),
+            "--distributed"] + pod_example_args() + list(extra) + [
+            "--metrics-path", os.path.join(tmp, "two.jsonl"),
+            "--checkpoint-dir", os.path.join(tmp, "ckpt")])])
+        dt, recs, _ = res[label]
+        return check_pod_example(label, dt, recs, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def example_checks():
+    """Each example's arguments and check at its default config: the
+    bound of the reference test of its engine (``COMPARISON_BOUNDS`` on
+    ``hybrid_chain``; tests/test_nuts_map.py:32-41 and 59-69,
+    tests/test_smc.py:30-44 and 65, tests/test_models_extra.py:16-27),
+    the friends-smokers closed form at ``cancer_errors``' bound →
+    ``{script: (argv, what, check(records))}``. One depth is cut: the
+    image-denoising script's NUTS to 50 warmup + 100 samples of its 500 +
+    1,000 (its 16×16 grid and 32 chains kept; the whole default run took
+    753 s on an NVIDIA H100, PERF.md §4)."""
+    b = COMPARISON_BOUNDS
+    return {
+        "torch_run_hybrid_chain": (
+            [], f"NUTS E[x] err < {b['nuts']}, P(d) err < 0.06",
+            lambda r: r[0]["mean_err_max"] < b["nuts"]
+            and r[0]["disc_err_max"] < 0.06),
+        "torch_run_gaussian_grid": (
+            [], f"NUTS mean err avg < {b['nuts']}",
+            lambda r: r[0]["mean_err_avg"] < b["nuts"]),
+        "torch_run_friends_smokers": (
+            [], "lifted VI P(cancer(p0)) within 0.01 of σ(1.2)",
+            lambda r: r[0]["cancer_err"] < 0.01),
+        "torch_run_lds_smc": (
+            [], f"SMC mean err avg < {b['smc']}, max < 0.3, log Z err < 0.5",
+            lambda r: r[0]["mean_err_avg"] < b["smc"]
+            and r[0]["mean_err_max"] < 0.3 and r[0]["log_z_err"] < 0.5),
+        "torch_run_image_denoise": (
+            ["--n-warmup", "50", "--n-samples", "100"],
+            "NUTS denoised MSE < 0.6 x observed",
+            lambda r: r[0]["mse_est"] < 0.6 * r[0]["mse_obs"]),
+        "torch_run_robot_map": (
+            [], f"VI misclassified share < {b['vi']}",
+            lambda r: 1 - r[0]["correct"] / r[0]["n_unlabeled"] < b["vi"]),
+        "torch_demo": (
+            [], "each engine's errors within its COMPARISON_BOUNDS; MaxWalkSAT "
+            "d* exact, x1* within 0.15",
+            lambda r: all(max(x["mean_err_max"], x["disc_err_max"])
+                          < b[x["engine"]] for x in r[:-1])
+            and r[-1]["map_d_equal"] and r[-1]["map_x1_err"] < 0.15),
+    }
+
+
+def phase_examples(smi, extra=()):
+    """The port's example scripts (``examples/torch_*.py`` other than the
+    comparison) on the card at their default configs (one depth cut,
+    ``example_checks``), all at once (each one's wall time shares the
+    host and the card with the others): each held to ``example_checks``,
+    and the pod-scale one, as one process at ``pod_example_args``, to
+    ``check_pod_example``."""
+    import os
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="lhvi_examples_")
+    checks = example_checks()
+    pod = "one process"
+    try:
+        res = run_scripts([(name, [
+            sys.executable, os.path.join(here, "examples", f"{name}.py"),
+            "--metrics-path", os.path.join(tmp, f"{name}.jsonl")] + argv
+            + list(extra)) for name, (argv, _, _) in checks.items()] + [
+            (pod, [sys.executable,
+                   os.path.join(here, "examples", "torch_run_pod_scale.py"),
+                   "--metrics-path", os.path.join(tmp, "pod.jsonl")]
+             + pod_example_args() + list(extra))])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rates = check_pod_example(pod + " (with the other scripts at once)",
+                              res[pod][0], res[pod][1], smi)
+    bad = []
+    for name, (_, what, check) in checks.items():
+        dt, recs, _ = res[name]
+        recs = [r for r in recs if r["event"] == "result"]
+        ok = check(recs)
+        fields = [{k: (round(v, 5) if isinstance(v, float) else v)
+                   for k, v in r.items() if k not in ("t", "event")}
+                  for r in recs]
+        log(f"[examples] {name}: process {dt:.1f} s; {fields}; check "
+            f"({what}) {ok} on {smi}")
+        rates[f"example_{name}_s"] = dt
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"examples out of bounds: {bad}")
+    return rates
+
+
 def phase_runtime(dev, smi):
     """Resumable sampling on the card (K1, K2, K3, K5), the two-rank path
-    (K1, K3, K4 on each rank) and the engine comparison."""
-    from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
-    from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
-    from lhvi_tpu_torch.ops.resample import weight_pipeline
-
+    (K1 to K5 on each rank) and the engine comparison."""
     t0 = time.perf_counter()
     rates = phase_resume(dev, smi)
     log(f"[time] runtime: resume {time.perf_counter() - t0:.1f} s")
@@ -2634,8 +3294,7 @@ def phase_runtime(dev, smi):
     r, launches = check_ranks(spawn_ranks(()), smi)
     rates.update(r)
     # the ranks' launches are this path's: fold them into the counts
-    for k, c in (("quad_leapfrog", quad_leapfrog),
-                 ("nuts_traj", nuts_trajectory), ("weights", weight_pipeline)):
+    for k, c in rank_counters().items():
         c.launches += sum(launches[k])
     log(f"[time] runtime: two ranks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2958,7 +3617,9 @@ def main() -> int:
             ("hmc", lambda: phase_slice(dev, smi),
              ("quad_leapfrog", "dia_proposal")),
             ("nuts", lambda: phase_nuts(dev, smi), ("nuts_traj",)),
-            ("smc", lambda: phase_smc(dev, smi), ("weights",)),
+            ("smc", lambda: keep.update(
+                smc_banded64_particle_temps_per_s=phase_smc(dev, smi)[1]),
+             ("weights", "dia_proposal")),
             ("robot", lambda: phase_robot(dev, smi, keep),
              ("logpot_leapfrog",)),
             ("dia_leapfrog", lambda: path_dia_leapfrog(dev),
@@ -2978,7 +3639,12 @@ def main() -> int:
             # in); the engine comparison
             ("runtime", lambda: keep.update(phase_runtime(dev, smi)),
              ("quad_leapfrog", "dia_proposal", "nuts_traj", "weights",
-              "logpot_leapfrog"))):
+              "logpot_leapfrog")),
+            # the example scripts, each in processes of its own (their
+            # launches are not this process's counts)
+            ("pod_scale_example",
+             lambda: keep.update(phase_pod_scale_example(smi)), ()),
+            ("examples", lambda: keep.update(phase_examples(smi)), ())):
         if only is not None and path not in only:
             continue
         for c in counters.values():
@@ -3037,7 +3703,12 @@ def main() -> int:
               "resume_hybrid_chain_fused_chain_samples_per_s",
               "plain_hybrid_chain_fused_chain_samples_per_s",
               "ckpt_grid10x10_bytes", "ckpt_grid10x10_save_s",
-              "ckpt_grid128x128_bytes", "ckpt_grid128x128_save_s"):
+              "ckpt_grid128x128_bytes", "ckpt_grid128x128_save_s",
+              "smc_banded64_particle_temps_per_s", "vi_tp_steps_per_s",
+              "vi_untp_steps_per_s", "sharded_grid128x128_chain_samples_per_s",
+              "sharded_robot100_chain_samples_per_s",
+              *sorted(k for k in keep if k.startswith(("pod_example_",
+                                                        "example_")))):
         log(f"[rates] {k} {keep[k]:.6g} on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -78,3 +78,14 @@ def make_parser(cfg, desc: str) -> argparse.ArgumentParser:
                    help="run on the CPU instead of the card")
     add_args(p, cfg)
     return p
+
+
+def report(path, **fields) -> None:
+    """Append one ``result`` record (the numbers the script printed) to the
+    JSONL file ``path``, where one is given (``--metrics-path``)."""
+    if not path:
+        return
+    from lhvi_tpu_torch.utils.metrics import MetricsLogger
+
+    with MetricsLogger(path) as log:
+        log.log("result", **fields)

@@ -324,6 +324,7 @@ class EPBP:
     ``fg.device`` with draws from ``gen`` (a ``torch.Generator`` there)."""
 
     def __init__(self, fg: CompiledFG, cfg: EPBPConfig = EPBPConfig()):
+        fg.require_whole("EPBP")
         self.fg = fg
         self.cfg = cfg
         self.bidx = _index_buckets(fg)

@@ -851,6 +851,7 @@ def run_hmc(
     """
     if collect not in ("samples", "moments"):
         raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
+    fg.require_whole("run_hmc")
     fg, cfg = _ensure_mode_swap_plan(fg, cfg)
     dev = fg.device
     C = local_count(n_chains, shard)

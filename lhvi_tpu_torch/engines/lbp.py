@@ -292,6 +292,7 @@ class HybridLBP:
     """
 
     def __init__(self, fg: CompiledFG):
+        fg.require_whole("HybridLBP")
         self.fg = fg
         self.edge_plan = build_edge_gather(
             fg.meta.np_buckets, [b.pattern for b in fg.buckets],

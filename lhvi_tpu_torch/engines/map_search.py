@@ -104,6 +104,7 @@ class HybridMaxWalkSAT:
     runs on ``fg.device`` with draws from ``gen``."""
 
     def __init__(self, fg: CompiledFG, cfg: MWSConfig = MWSConfig()):
+        fg.require_whole("HybridMaxWalkSAT")
         self.fg = fg
         self.cfg = cfg
         self.xc = self.xd = self.energy = None

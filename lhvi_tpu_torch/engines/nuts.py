@@ -364,6 +364,7 @@ def run_nuts(
     """
     if collect not in ("samples", "moments"):
         raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
+    fg.require_whole("run_nuts")
     fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
     dev = fg.device
     hcfg = cfg.to_hmc()

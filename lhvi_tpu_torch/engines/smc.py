@@ -309,6 +309,7 @@ def run_smc(fg: CompiledFG, gen: torch.Generator,
     ``xc``, ``xd`` and ``log_w`` (normalized over all particles); log Z and
     ``diag`` are the same on every rank.
     """
+    fg.require_whole("run_smc")
     fg, cfg = _ensure_mode_swap_plan(fg, cfg)
     N = cfg.n_particles
     n_loc = local_count(N, shard)

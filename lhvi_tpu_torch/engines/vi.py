@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from lhvi_tpu_torch.fg.compile import CompiledFG, FactorBucket, _expand_params
+from lhvi_tpu_torch.parallel.mesh import all_reduce, sum_over_shards
 from lhvi_tpu_torch.utils.debug import check_nan
 
 _NEG_BIG = -1e30
@@ -309,21 +310,33 @@ def _quad_expected(fg: CompiledFG, params: VIParams) -> torch.Tensor:
 
 
 def elbo(fg: CompiledFG, params: VIParams, n_quad: int) -> torch.Tensor:
+    """The ELBO of ``params``. On a factor-sharded graph
+    (``parallel.shard_fg_factors``) it is the whole graph's ELBO on every
+    rank, and its gradient is this rank's share: the bucket terms of this
+    rank's rows plus the replicated terms (``mixture_entropy_bound``,
+    ``_quad_expected``) scaled by 1/world, so the sum of the ranks'
+    gradients (``_fit_from``'s ``all_reduce``) counts the replicated terms
+    once (``parallel/mesh.py::sum_over_shards``)."""
     plans = _vi_plans(fg, n_quad)
     bd = beliefs_disc(fg, params)
-    total = mixture_entropy_bound(fg, params, bd)
+    sh = fg.factor_shard
+    rep = mixture_entropy_bound(fg, params, bd)
     if fg.has_quad:
-        total = total + _quad_expected(fg, params)
+        rep = rep + _quad_expected(fg, params)
+    total = rep if sh is None else torch.zeros((), device=fg.device)
     for i in fg.lp_bucket_idx:
         total = total + _bucket_expected_logpot(fg, fg.buckets[i], params,
                                                 bd, plans[i])
-    return total
+    return total if sh is None else sum_over_shards(rep, total, sh)
 
 
 def _fit_from(fg: CompiledFG, params: VIParams, cfg: VIConfig):
     """Optimize the ELBO from given initial params with Adam; returns
     (params, elbo_trace [n_iters]), the trace a device tensor of the ELBO
-    before each update (the loop itself reads nothing back)."""
+    before each update (the loop itself reads nothing back). On a
+    factor-sharded graph every step all-reduces the ranks' gradient shares
+    (see :func:`elbo`) before the update, so every rank takes the same
+    step; the trace holds the whole graph's ELBO."""
     leaves = [p.detach().clone().requires_grad_(True) for p in params]
     opt = torch.optim.Adam(leaves, lr=cfg.lr)
     trace = torch.empty((cfg.n_iters,), device=fg.device)
@@ -333,9 +346,21 @@ def _fit_from(fg: CompiledFG, params: VIParams, cfg: VIConfig):
         check_nan("vi.fit step", elbo=e, **dict(zip(VIParams._fields,
                                                     leaves)))
         (-e).backward()
+        if fg.factor_shard is not None:
+            _all_reduce_grads(leaves, fg.factor_shard)
         opt.step()
         trace[i] = e.detach()
     return VIParams(*(p.detach() for p in leaves)), trace
+
+
+def _all_reduce_grads(leaves, shard) -> None:
+    """Sum every leaf's gradient over the ranks of ``shard``, in one
+    collective (a leaf the ELBO did not reach counts as zero)."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in leaves]
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), shard)
+    for p, g in zip(leaves, torch.split(flat, [g.numel() for g in grads])):
+        p.grad = g.reshape(p.shape)
 
 
 def fit(fg: CompiledFG, gen: torch.Generator, cfg: VIConfig = VIConfig()):

@@ -260,6 +260,18 @@ class CompiledFG:
     # ELBO and kept on the device (engines/vi.py::_vi_plans)
     vi_plans: Dict[int, Any] = dataclasses.field(default_factory=dict,
                                                  repr=False)
+    # the parallel.ChainShard whose rank's rows every bucket holds
+    # (parallel.shard_fg_factors); None: the whole graph
+    factor_shard: Any = None
+
+    def require_whole(self, who: str) -> None:
+        """Raise where ``who`` is given one rank's factor rows: only VI and
+        ``log_prob`` sum the bucket terms over the ranks."""
+        if self.factor_shard is not None:
+            raise ValueError(
+                f"{who} needs the whole graph, and this one holds one "
+                "rank's factor rows (parallel.shard_fg_factors); shard the "
+                "chains (shard=) instead")
 
     @property
     def cont_pure_quad(self) -> bool:
@@ -309,30 +321,36 @@ class CompiledFG:
         lp = b.kernel(params, xcs, xdi, xdv)  # [C, n_f]
         return torch.sum(b.scale[None] * lp, dim=-1)
 
+    def _sum_buckets(self, idx, xc, xd) -> torch.Tensor:
+        """The fused form plus the buckets ``idx`` (one running sum, in
+        the reference's order); on a factor-sharded graph the bucket terms
+        are summed over the ranks (``parallel/mesh.py::sum_over_shards``:
+        the whole graph's value on every rank)."""
+        sh = self.factor_shard
+        zero = torch.zeros((xc.shape[0],), dtype=torch.float32,
+                           device=xc.device)
+        quad = self.quad_log_prob_batched(xc) if self.has_quad else zero
+        total = zero + quad if sh is None else zero
+        for i in idx:
+            total = total + self._bucket_logp_batched(i, xc, xd)
+        if sh is None:
+            return total
+        from lhvi_tpu_torch.parallel.mesh import sum_over_shards
+
+        return sum_over_shards(quad, total, sh)
+
     def log_prob_batched(self, xc: torch.Tensor,
                          xd: torch.Tensor) -> torch.Tensor:
         """``[C]`` log p for a batch of states: the fused form plus one
         gather/kernel pass per surviving bucket."""
-        total = torch.zeros((xc.shape[0],), dtype=torch.float32,
-                            device=xc.device)
-        if self.has_quad:
-            total = total + self.quad_log_prob_batched(xc)
-        for i in self.lp_bucket_idx:
-            total = total + self._bucket_logp_batched(i, xc, xd)
-        return total
+        return self._sum_buckets(self.lp_bucket_idx, xc, xd)
 
     def log_prob_cont_batched(self, xc: torch.Tensor,
                               xd: torch.Tensor) -> torch.Tensor:
         """``[C]`` continuous-state-dependent part of ``log_prob``: the fused
         form plus only the buckets that read ``xc`` (differs from
         :meth:`log_prob_batched` by a term constant in ``xc``)."""
-        total = torch.zeros((xc.shape[0],), dtype=torch.float32,
-                            device=xc.device)
-        if self.has_quad:
-            total = total + self.quad_log_prob_batched(xc)
-        for i in self.cont_bucket_idx:
-            total = total + self._bucket_logp_batched(i, xc, xd)
-        return total
+        return self._sum_buckets(self.cont_bucket_idx, xc, xd)
 
     def disc_logits(self, xc: torch.Tensor, xd: torch.Tensor) -> torch.Tensor:
         """Per-variable full-conditional logits of the discrete latents.
@@ -349,6 +367,7 @@ class CompiledFG:
         """
         if xc.dim() == 1:
             return self.disc_logits(xc[None], xd[None])[0]
+        self.require_whole("disc_logits")
         C, V = xc.shape[0], self.max_v
         dev = xc.device
         if self.n_disc == 0:

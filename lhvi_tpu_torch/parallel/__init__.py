@@ -1,4 +1,5 @@
-"""Chain and particle sharding of the port over ``torch.distributed``."""
+"""Chain, particle and factor-axis sharding of the port over
+``torch.distributed``."""
 
 from lhvi_tpu_torch.parallel.mesh import (
     ChainShard,
@@ -9,6 +10,7 @@ from lhvi_tpu_torch.parallel.mesh import (
     local_count,
     n_chain_shards,
     replicas_equal,
+    shard_fg_factors,
     split_generator,
 )
 
@@ -21,5 +23,6 @@ __all__ = [
     "local_count",
     "n_chain_shards",
     "replicas_equal",
+    "shard_fg_factors",
     "split_generator",
 ]

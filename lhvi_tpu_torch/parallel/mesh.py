@@ -26,6 +26,11 @@ seed drawn from the caller's generator, the rank), so no two ranks draw
 the same momenta; draws every rank must agree on (the SMC resampler's
 offset, the mode-swap gate) come from a generator shared by all ranks
 (:func:`split_generator`).
+
+The factor axis (the reference's ``tp``): :func:`shard_fg_factors` gives
+each rank of a group the rows ``[lo, hi)`` of every bucket; VI's ELBO and
+``log_prob`` then sum the bucket terms over the group
+(:func:`sum_over_shards`) and VI all-reduces its gradient.
 """
 
 from __future__ import annotations
@@ -60,8 +65,10 @@ def init_distributed(backend: Optional[str] = None,
     """Join (or reuse) the default process group and return this rank's
     :class:`ChainShard`. Rank, world size and address default to
     torchrun's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
-    ``MASTER_PORT``); the backend defaults to NCCL where a GPU is present,
-    gloo otherwise. With NCCL each rank takes the GPU ``LOCAL_RANK``."""
+    ``MASTER_PORT``); the backend defaults to NCCL where every rank has a
+    GPU of its own, gloo otherwise (NCCL refuses two ranks on one GPU;
+    under gloo such ranks share the current GPU). With NCCL each rank
+    takes the GPU ``LOCAL_RANK``."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
@@ -69,7 +76,8 @@ def init_distributed(backend: Optional[str] = None,
         world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
                       else world_size)
         if backend is None:
-            backend = "nccl" if torch.cuda.is_available() else "gloo"
+            backend = ("nccl" if world_size <= torch.cuda.device_count()
+                       else "gloo")
         if backend == "nccl":
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank))
                                   % torch.cuda.device_count())
@@ -172,3 +180,66 @@ def replicas_equal(t: torch.Tensor, shard: Optional[ChainShard]) -> bool:
     hi = all_reduce(t, shard, "max")
     lo = -all_reduce(-t, shard, "max")
     return bool(torch.equal(hi, lo))
+
+
+class _ValueOf(torch.autograd.Function):
+    """``value`` forward, the gradient of ``share`` backward."""
+
+    @staticmethod
+    def forward(ctx, share, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over_shards(replicated: torch.Tensor, local: torch.Tensor,
+                    shard: Optional[ChainShard]) -> torch.Tensor:
+    """``replicated + Σ_ranks local`` on every rank, where ``replicated``
+    is the same on every rank and ``local`` is this rank's part (``[]`` or
+    ``[C]``). Its gradient is this rank's share, that of
+    ``replicated / world + local``: summing the ranks' gradients (an
+    ``all_reduce``) gives the gradient of the whole, with the replicated
+    terms counted once. ``replicated + local`` where ``shard`` is None."""
+    if shard is None:
+        return replicated + local
+    share = replicated / shard.world + local
+    value = replicated.detach() + all_reduce(local.detach(), shard)
+    return _ValueOf.apply(share, value)
+
+
+def shard_fg_factors(fg, shard: ChainShard):
+    """Factor-axis placement: a copy of the compiled graph ``fg`` whose
+    every bucket holds only this rank's rows ``[lo, hi)`` of ``shard``
+    (usually a ``tp`` subgroup, ``chain_sharding(group=...)``).
+
+    Every bucket's row count must divide over the ranks: compile with
+    ``pad_to`` a multiple of ``shard.world``. Per-variable tables and the
+    fused information form stay whole. The copy records ``shard``
+    (``CompiledFG.factor_shard``): ``vi.elbo`` and ``log_prob`` /
+    ``log_prob_batched`` return the whole graph's value on every rank
+    (:func:`sum_over_shards`; a rank whose rows are all padding adds
+    zeros, and every rank runs the same buckets, ``lp_bucket_idx``, so the
+    collectives pair up) and ``vi.fit`` all-reduces the gradient. The
+    copy serves VI and ``log_prob``; the samplers and BP engines refuse it
+    (they shard chains instead, ``shard=``). It starts with no VI plans
+    of its own: plans built on the whole buckets do not carry over."""
+    from lhvi_tpu_torch.fg.compile import _BUCKET_TABLES
+
+    for b in fg.buckets:
+        if b.n_factors % shard.world != 0:
+            raise ValueError(
+                f"bucket {b.kind} has {b.n_factors} rows, not divisible by "
+                f"tp={shard.world}; compile with pad_to a multiple of it")
+
+    def rows(b):
+        lo, hi = shard.rows(b.n_factors)
+        cut = {k: getattr(b, k)[lo:hi] for k in _BUCKET_TABLES}
+        params = {k: (v[lo:hi] if v.dim() else v)
+                  for k, v in b.params.items()}
+        return dataclasses.replace(b, params=params, **cut)
+
+    return dataclasses.replace(
+        fg, buckets=tuple(rows(b) for b in fg.buckets), factor_shard=shard,
+        vi_plans={})

@@ -310,11 +310,18 @@ def test_out_of_slice_paths_raise():
 def test_port_imports_without_jax():
     """Every module of the port (the runtime's too: config, the
     checkpoints, diagnostics, metrics and NaN checks, resumable sampling,
-    the sharding over torch.distributed) imports in a fresh interpreter
-    without pulling in jax, flax, orbax or the JAX package: the guard that
-    keeps chip_smoke.py runnable where JAX is not installed."""
+    the sharding over torch.distributed) and every example script of the
+    port (``examples/torch_*.py``, imported as modules with jax and the
+    JAX package blocked) imports in a fresh interpreter without pulling in
+    jax, flax, orbax or the JAX package: the guard that keeps
+    chip_smoke.py runnable where JAX is not installed."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.abc, pkgutil, sys\n"
+        "BLOCK = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lhvi_tpu')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in BLOCK:\n"
+        "            raise ImportError('blocked: ' + name)\n"
         "import lhvi_tpu_torch, lhvi_tpu_torch.engines.hmc\n"
         "import lhvi_tpu_torch.config, lhvi_tpu_torch.engines.resumable\n"
         "import lhvi_tpu_torch.parallel.mesh, lhvi_tpu_torch.utils.checkpoint\n"
@@ -323,9 +330,14 @@ def test_port_imports_without_jax():
         "for m in pkgutil.walk_packages(lhvi_tpu_torch.__path__,"
         " 'lhvi_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lhvi_tpu'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCK)\n"
         "assert not bad, bad\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "sys.path.insert(0, 'examples')\n"
+        "import pathlib\n"
+        "for f in sorted(pathlib.Path('examples').glob('torch_*.py')):\n"
+        "    importlib.import_module(f.stem)\n"
+        "assert len(list(pathlib.Path('examples').glob('torch_*.py'))) == 10\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

@@ -178,6 +178,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 
+def kernel_launches(kernel: str) -> int:
+    """Launches of kernel ``kernel`` ("k1" … "k6") the port has counted
+    since its counters were last reset."""
+    from lhvi_tpu_torch.utils.metrics import counters
+
+    return counters()[f"ops.{kernel}.launches"]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -550,9 +558,9 @@ def phase_k6(dev, C=1024):
 
     record = None
     for steps in (1, 8):
-        before = dia.dia_quad_leapfrog.launches
+        before = kernel_launches("k6")
         got = dia.dia_quad_leapfrog(x, p, *consts, steps, pos=pos)
-        if dia.dia_quad_leapfrog.launches != before + 1:
+        if kernel_launches("k6") != before + 1:
             raise AssertionError("dia_quad_leapfrog did not launch K6 once")
         errs = {}
         for dt in (torch.float32, torch.float64):
@@ -994,9 +1002,9 @@ def phase_k5(dev, C_robot=16384, C_denoise=4096):
                       base_mid=0.5 * (lo + hi),
                       base_inv_s2=torch.full((n,), 1.0 / 2.0**2, device=dev))
         args = (fg, x, p, xd, im, torch.full((), eps, device=dev), steps)
-        before = logpot.logpot_leapfrog.launches
+        before = kernel_launches("k5")
         got = logpot.logpot_leapfrog(*args, plan="auto", **kw)
-        if logpot.logpot_leapfrog.launches != before + 1:
+        if kernel_launches("k5") != before + 1:
             raise AssertionError(f"{name}: plan='auto' did not launch K5")
         plains = {"autograd": logpot.logpot_leapfrog(*args, plan=None, **kw),
                   "tape": logpot.tape_logpot_leapfrog(*args, plan=plan, **kw)}
@@ -1080,8 +1088,6 @@ def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
     from lhvi_tpu_torch.engines import hmc, smc
     from lhvi_tpu_torch.models.relational import robot_map, robot_scan_evidence
     from lhvi_tpu_torch.models.toy import hybrid_chain
-    from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
-    from lhvi_tpu_torch.ops.resample import weight_pipeline
     from lhvi_tpu_torch.relational.data import load_evidence
     from lhvi_tpu_torch.utils.oracle import ExactPosterior
 
@@ -1092,9 +1098,9 @@ def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
     for fused in (True, False):
         cfg = hmc.HMCConfig(n_leapfrog=8, init_step_size=0.05,
                             fused_logpot=fused)
-        before = logpot_leapfrog.launches
+        before = kernel_launches("k5")
         rate, spread = run_and_time(hmc, fg, cfg, dev, C, S)
-        k5 = logpot_leapfrog.launches - before
+        k5 = kernel_launches("k5") - before
         name = "fused" if fused else "unfused"
         log(f"[robot] {name} (fused_logpot={fused}): {rate:.6g} "
             f"chain-samples/s (rep spread {spread:.3f}), {C} chains x {S} "
@@ -1132,13 +1138,13 @@ def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
     g, index = robot_map(5, evidence=load_evidence(text)).ground()
     exact = ExactPosterior(g, cont_grid=81)
     fgs = compile_graph(g, dev)
-    before = logpot_leapfrog.launches
+    before = kernel_launches("k5")
     res = hmc.sample(fgs, torch.Generator(dev).manual_seed(0),
                      cfg=hmc.HMCConfig(n_leapfrog=8, init_step_size=0.2,
                                        gibbs_sweeps=2, fused_logpot=True),
                      n_chains=C_exact, n_warmup=300, n_samples=600,
                      collect="moments")
-    k5 = logpot_leapfrog.launches - before
+    k5 = kernel_launches("k5") - before
     errs = [0.0, 0.0, 0.0]
     for i in range(5):
         rv_t = index[("type", (f"s{i}",))]
@@ -1160,12 +1166,12 @@ def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
     # E[x2] = 4/15 (the switch's normalization is d-independent)
     g, (d, x1, x2) = hybrid_chain()
     fgh = compile_graph(g, dev)
-    before = logpot_leapfrog.launches
+    before = kernel_launches("k5")
     res = hmc.sample(fgh, torch.Generator(dev).manual_seed(1),
                      cfg=hmc.HMCConfig(init_step_size=0.2, fused_logpot=True),
                      n_chains=C, n_warmup=300, n_samples=400,
                      collect="moments")
-    k5 = logpot_leapfrog.launches - before
+    k5 = kernel_launches("k5") - before
     pd = res.disc_marginal(d)
     got = (float(pd[1]), res.mean(x1), res.mean(x2))
     log(f"[robot] hybrid_chain, {C} chains, fused_logpot=True (K5 launches "
@@ -1181,8 +1187,8 @@ def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
     fgd = denoise_fg(dev)
     lz = {}
     for fused in (True, False):
-        before = logpot_leapfrog.launches
-        before_k4 = weight_pipeline.launches
+        before = kernel_launches("k5")
+        before_k4 = kernel_launches("k4")
         cfg = smc.SMCConfig(n_particles=N_smc, n_temps=400, adaptive=True,
                             fused_logpot=fused)
         t0 = time.perf_counter()
@@ -1191,8 +1197,8 @@ def phase_robot(dev, smi, keep, C=16384, S=50, C_exact=65536, N_smc=16384):
         dt = time.perf_counter() - t0
         lz[fused] = [r.log_z for r in runs]
         temps = [int(r.diag["n_temps_used"]) for r in runs]
-        k5 = logpot_leapfrog.launches - before
-        k4 = weight_pipeline.launches - before_k4
+        k5 = kernel_launches("k5") - before
+        k4 = kernel_launches("k4") - before_k4
         log(f"[robot] smc denoise 11x11 (adaptive), {N_smc} particles, "
             f"fused_logpot={fused}: log Z {[round(v, 4) for v in lz[fused]]}, "
             f"temperatures {temps}, {N_smc * sum(temps) / dt:.6g} particle-"
@@ -1237,7 +1243,6 @@ def phase_hybrid(dev, smi, robot_hmc, C=16384, S=20, C_small=4096,
     from lhvi_tpu_torch.engines import nuts, smc
     from lhvi_tpu_torch.models.relational import robot_map, robot_scan_evidence
     from lhvi_tpu_torch.models.toy import hybrid_chain
-    from lhvi_tpu_torch.ops.resample import weight_pipeline
     from lhvi_tpu_torch.relational.data import load_evidence
     from lhvi_tpu_torch.utils.oracle import ExactPosterior
 
@@ -1328,10 +1333,10 @@ def phase_hybrid(dev, smi, robot_hmc, C=16384, S=20, C_small=4096,
     exact = exact_h
     assert fgh.color_plan is not None  # the planned tempered sweep
     t0 = time.perf_counter()
-    before = weight_pipeline.launches
+    before = kernel_launches("k4")
     res = smc.sample(fgh, torch.Generator(dev).manual_seed(5),
                      smc.SMCConfig(n_particles=N_smc, n_temps=40, n_moves=2))
-    k4 = weight_pipeline.launches - before
+    k4 = kernel_launches("k4") - before
     errs = (abs(res.mean(x1) - exact.mean(x1)),
             float(np.abs(res.disc_marginal(d) - exact.disc_marginal(d)).max()),
             abs(res.log_z - exact.log_z))
@@ -1482,8 +1487,6 @@ def smc_banded_anchor(dev, smi, rows=64, N=1024, quad_max_n=1024):
 
     from lhvi_tpu_torch import compile_graph
     from lhvi_tpu_torch.engines import smc
-    from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
-    from lhvi_tpu_torch.ops.resample import weight_pipeline
 
     g = weak_grid(rows, rows)
     fg = compile_graph(g, dev, quad_max_n=quad_max_n)
@@ -1491,7 +1494,7 @@ def smc_banded_anchor(dev, smi, rows=64, N=1024, quad_max_n=1024):
     mean_exact = sparse_lu_means(g, fg)
     cfg = smc.SMCConfig(n_particles=N, n_temps=20, n_moves=2, n_leapfrog=10,
                         step_size=0.12, base_scale=1.5, adaptive=True)
-    k2, k4 = dia_hmc_proposal.launches, weight_pipeline.launches
+    k2, k4 = kernel_launches("k2"), kernel_launches("k4")
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1500,8 +1503,8 @@ def smc_banded_anchor(dev, smi, rows=64, N=1024, quad_max_n=1024):
     w = torch.softmax(log_w.double(), 0)
     mean = (w[:, None] * xc.double()).sum(0).cpu().numpy()
     dt = time.perf_counter() - t0
-    k2 = dia_hmc_proposal.launches - k2
-    k4 = weight_pipeline.launches - k4
+    k2 = kernel_launches("k2") - k2
+    k4 = kernel_launches("k4") - k4
     used = int(diag["n_temps_used"])
     err = np.abs(mean - mean_exact)
     rate = N * used / dt
@@ -1527,7 +1530,6 @@ def phase_smc(dev, smi, N=65536):
     from lhvi_tpu_torch.engines import smc
     from lhvi_tpu_torch.models.lds import kalman_lds
     from lhvi_tpu_torch.models.toy import gaussian_grid
-    from lhvi_tpu_torch.ops.resample import weight_pipeline
 
     g, xs, _ = kalman_lds(T=20, seed=0)
     fg = compile_graph(g, dev)
@@ -1536,11 +1538,11 @@ def phase_smc(dev, smi, N=65536):
     for adaptive in (False, True):
         cfg = smc.SMCConfig(n_particles=N, n_temps=50, n_moves=2,
                             adaptive=adaptive)
-        before = weight_pipeline.launches
+        before = kernel_launches("k4")
         t0 = time.perf_counter()
         res = smc.sample(fg, torch.Generator(dev).manual_seed(0), cfg)
         dt = time.perf_counter() - t0
-        k4 = weight_pipeline.launches - before
+        k4 = kernel_launches("k4") - before
         errs = np.array([abs(res.mean(rv) - mean[i]) for rv, i in
                          zip(xs, idx)])
         vrel = np.array([abs(res.var(rv) - var[i]) / var[i] for rv, i in
@@ -1568,9 +1570,9 @@ def phase_smc(dev, smi, N=65536):
         out = smc.run_smc(fg, torch.Generator(dev).manual_seed(seed), cfg)
         lz.append(float(out[3]))
 
-    before = weight_pipeline.launches
+    before = kernel_launches("k4")
     dt, spread = timed_runs(run)
-    k4 = (weight_pipeline.launches - before) / (4 * cfg.n_temps)
+    k4 = (kernel_launches("k4") - before) / (4 * cfg.n_temps)
     rate = N * cfg.n_temps / dt
     log(f"[smc] throughput (10x10 grid): {rate:.6g} particle-temperature-"
         f"steps/s (rep spread {spread:.3f}; K4 launches a temperature "
@@ -2609,7 +2611,6 @@ def owed_checks(dev, shard, rows=128, quad_max_n=4096, C=1024, S=20,
     from lhvi_tpu_torch.engines import hmc
     from lhvi_tpu_torch.models.toy import gaussian_grid, hybrid_chain
     from lhvi_tpu_torch.ops.dia import _KEY_TAG, dia_hmc_proposal
-    from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
     from lhvi_tpu_torch.parallel import all_reduce, split_generator
 
     def gen(seed):
@@ -2622,14 +2623,14 @@ def owed_checks(dev, shard, rows=128, quad_max_n=4096, C=1024, S=20,
         m1, _, _ = hmc.run_hmc(fg, gen(seed + 100), cfg, n_chains=n_chains,
                                n_samples=2, shard=shard, **kw)
         float(m1["mean"][0])
-        k2, k5 = dia_hmc_proposal.launches, logpot_leapfrog.launches
+        k2, k5 = kernel_launches("k2"), kernel_launches("k5")
         t0 = time.perf_counter()
         m1, _, _ = hmc.run_hmc(fg, gen(seed), cfg, n_chains=n_chains,
                                n_samples=n_samples, shard=shard, **kw)
         float(m1["mean"][0])
         dt = time.perf_counter() - t0
-        k2 = dia_hmc_proposal.launches - k2
-        k5 = logpot_leapfrog.launches - k5
+        k2 = kernel_launches("k2") - k2
+        k5 = kernel_launches("k5") - k5
         m0, _, _ = hmc.run_hmc(fg, split_generator(gen(seed), shard.rank)[0],
                                cfg, n_chains=n_chains // shard.world,
                                n_samples=n_samples, **kw)
@@ -2660,13 +2661,13 @@ def owed_checks(dev, shard, rows=128, quad_max_n=4096, C=1024, S=20,
     out["hybrid"] = pair(fgh, hmc.HMCConfig(init_step_size=0.2,
                                             fused_logpot=True), 10, C_hybrid,
                          hybrid_steps[0])
-    k5 = logpot_leapfrog.launches
+    k5 = kernel_launches("k5")
     m, _, diag = hmc.run_hmc(fgh, gen(11), hmc.HMCConfig(
         init_step_size=0.2, fused_logpot=True), n_chains=C_hybrid,
         n_warmup=hybrid_steps[1], n_samples=hybrid_steps[2],
         collect="moments", shard=shard)
     out["hybrid"]["exact"] = {
-        "k5": logpot_leapfrog.launches - k5,
+        "k5": kernel_launches("k5") - k5,
         "pd": float(m["disc_probs"][fgh.meta.loc(d)[1], 1]),
         "x1": float(m["mean"][fgh.meta.loc(x1_)[1]]),
         "x2": float(m["mean"][fgh.meta.loc(x2_)[1]]),
@@ -2757,17 +2758,9 @@ def sharded_checks(dev, shard, C=65536, N=65536, S=50, steps=(100, 100)):
     return out
 
 
-def rank_counters() -> dict:
-    """The launch counters of the kernels the two-rank path reaches."""
-    from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
-    from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
-    from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
-    from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
-    from lhvi_tpu_torch.ops.resample import weight_pipeline
-
-    return {"quad_leapfrog": quad_leapfrog, "dia_proposal": dia_hmc_proposal,
-            "nuts_traj": nuts_trajectory, "weights": weight_pipeline,
-            "logpot_leapfrog": logpot_leapfrog}
+# the kernels the two-rank path reaches, by the name of their counter
+RANK_KERNELS = {"quad_leapfrog": "k1", "dia_proposal": "k2", "nuts_traj": "k3",
+                "weights": "k4", "logpot_leapfrog": "k5"}
 
 
 def rank_worker(rank: int, world: int, port: int, out: str) -> int:
@@ -2782,14 +2775,13 @@ def rank_worker(rank: int, world: int, port: int, out: str) -> int:
 
     import lhvi_tpu_torch  # noqa: F401  (turns TF32 off)
     from lhvi_tpu_torch.parallel import init_distributed
+    from lhvi_tpu_torch.utils.metrics import reset_tracing
 
     torch.cuda.set_device(0)
     shard = init_distributed("gloo", f"tcp://127.0.0.1:{port}", rank, world)
-    counters = rank_counters()
-    for c in counters.values():
-        c.launches = 0
+    reset_tracing()
     res = sharded_checks(torch.device("cuda", 0), shard)
-    res["launches"] = {k: c.launches for k, c in counters.items()}
+    res["launches"] = {k: kernel_launches(c) for k, c in RANK_KERNELS.items()}
     torch.save(res, f"{out}/rank{rank}.pt")
     dist.destroy_process_group()
     return 0
@@ -3287,6 +3279,8 @@ def phase_examples(smi, extra=()):
 def phase_runtime(dev, smi):
     """Resumable sampling on the card (K1, K2, K3, K5), the two-rank path
     (K1 to K5 on each rank) and the engine comparison."""
+    from lhvi_tpu_torch.utils.metrics import count
+
     t0 = time.perf_counter()
     rates = phase_resume(dev, smi)
     log(f"[time] runtime: resume {time.perf_counter() - t0:.1f} s")
@@ -3294,8 +3288,8 @@ def phase_runtime(dev, smi):
     r, launches = check_ranks(spawn_ranks(()), smi)
     rates.update(r)
     # the ranks' launches are this path's: fold them into the counts
-    for k, c in rank_counters().items():
-        c.launches += sum(launches[k])
+    for k, c in RANK_KERNELS.items():
+        count(f"ops.{c}.launches", sum(launches[k]))
     log(f"[time] runtime: two ranks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_comparison(smi)
@@ -3566,11 +3560,7 @@ def main() -> int:
     # the script fails here, with no output on stdout
     import lhvi_tpu_torch  # noqa: F401  (turns TF32 off)
     from lhvi_tpu_torch.ops import _build
-    from lhvi_tpu_torch.ops.dia import dia_hmc_proposal, dia_quad_leapfrog
-    from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
-    from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
-    from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
-    from lhvi_tpu_torch.ops.resample import weight_pipeline
+    from lhvi_tpu_torch.utils.metrics import reset_tracing
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -3606,10 +3596,7 @@ def main() -> int:
         k6 = phase_k6(dev)
         log(f"[time] kernel phases {time.perf_counter() - t0:.1f} s")
 
-    counters = {"quad_leapfrog": quad_leapfrog, "dia_proposal": dia_hmc_proposal,
-                "nuts_traj": nuts_trajectory, "weights": weight_pipeline,
-                "logpot_leapfrog": logpot_leapfrog,
-                "dia_leapfrog": dia_quad_leapfrog}
+    kernel_of = {**RANK_KERNELS, "dia_leapfrog": "k6"}
     launches = {}
     keep = {}
     # each path: every count set to 0 just before it, read just after
@@ -3647,11 +3634,10 @@ def main() -> int:
             ("examples", lambda: keep.update(phase_examples(smi)), ())):
         if only is not None and path not in only:
             continue
-        for c in counters.values():
-            c.launches = 0
+        reset_tracing()
         t0 = time.perf_counter()
         fn()
-        seen = {k: c.launches for k, c in counters.items()}
+        seen = {k: kernel_launches(c) for k, c in kernel_of.items()}
         log(f"[{path}] kernel launches on the path: {seen}; "
             f"{time.perf_counter() - t0:.1f} s")
         for k in kernels:

@@ -54,6 +54,7 @@ from lhvi_tpu_torch.parallel.mesh import (all_reduce, assemble_rows,
                                           local_count, n_chain_shards,
                                           split_generator)
 from lhvi_tpu_torch.utils.debug import check_nan
+from lhvi_tpu_torch.utils.metrics import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -386,17 +387,20 @@ def hmc_transition(fg: CompiledFG, cfg: HMCConfig, state: HMCState, gen,
     sweep(s), the mode-swap move where it is on (``gate``: the host
     generator of ``modeswap.maybe_mode_swap``), then one HMC proposal at
     the new discrete state. Under ``shard`` the adaptation reads the
-    acceptance and the Welford batch over all ranks' chains."""
-    xd = sweep_all(fg, cfg, gen, state.xc, state.xd)
-    state, xd = mode_swap_stage(fg, cfg, state, gen, gate, xd)
-    eps = torch.exp(state.log_eps)
-    xc, acc = _hmc_step_batched(fg, cfg, gen, state.xc, xd, eps,
-                                state.inv_mass)
-    check_nan("hmc_transition", xc=xc, acc=acc)
-    state = state._replace(xc=xc, xd=xd)
-    if adapt:
-        state = _da_update(state, chain_mean(acc, shard), cfg)
-        state = _welford_update(state, xc, shard)
+    acceptance and the Welford batch over all ranks' chains. Counted as
+    ``hmc.transitions``; timed as span ``hmc.transition``."""
+    count("hmc.transitions")
+    with span("hmc.transition"):
+        xd = sweep_all(fg, cfg, gen, state.xc, state.xd)
+        state, xd = mode_swap_stage(fg, cfg, state, gen, gate, xd)
+        eps = torch.exp(state.log_eps)
+        xc, acc = _hmc_step_batched(fg, cfg, gen, state.xc, xd, eps,
+                                    state.inv_mass)
+        check_nan("hmc_transition", xc=xc, acc=acc)
+        state = state._replace(xc=xc, xd=xd)
+        if adapt:
+            state = _da_update(state, chain_mean(acc, shard), cfg)
+            state = _welford_update(state, xc, shard)
     return state, acc
 
 
@@ -731,19 +735,24 @@ class _MomentStream:
             self.sdd = _stream_diag_disc_init(C, len(sel_np), dev)
 
     def update(self, t: int, xc, xd):
-        """Fold draw ``t`` (0-based) of every chain in."""
+        """Fold draw ``t`` (0-based) of every chain in. Counted as
+        ``hmc.draws``; timed as span ``hmc.moments``."""
         fg = self.fg
-        self.s1 = self.s1 + torch.sum(xc, dim=0)
-        self.s2 = self.s2 + torch.sum(xc * xc, dim=0)
-        if fg.n_disc:
-            self.cnt = self.cnt + torch.stack(
-                [torch.sum(xd == v, dim=0) for v in range(fg.max_v)], dim=-1)
-        if self.sd is not None:
-            self.sd = _stream_diag_update(self.sd, t, xc, self.half,
-                                          self.bm_len, self.n_batches)
-        if self.sel is not None:
-            self.sdd = _stream_diag_disc_update(
-                self.sdd, t, _disc_sel_values(fg, self.sel, xd), self.half)
+        count("hmc.draws")
+        with span("hmc.moments"):
+            self.s1 = self.s1 + torch.sum(xc, dim=0)
+            self.s2 = self.s2 + torch.sum(xc * xc, dim=0)
+            if fg.n_disc:
+                self.cnt = self.cnt + torch.stack(
+                    [torch.sum(xd == v, dim=0) for v in range(fg.max_v)],
+                    dim=-1)
+            if self.sd is not None:
+                self.sd = _stream_diag_update(self.sd, t, xc, self.half,
+                                              self.bm_len, self.n_batches)
+            if self.sel is not None:
+                self.sdd = _stream_diag_disc_update(
+                    self.sdd, t, _disc_sel_values(fg, self.sel, xd),
+                    self.half)
 
     def finalize(self):
         """``(moments, diag)``: the moments dict and the streamed
@@ -847,67 +856,69 @@ def run_hmc(
     (``diag["rhat_disc"]``, ``diag["disc_diag_idx"]`` naming them; see
     ``disc_diag_select``); 0 disables it. With ``cfg.mode_swap``,
     ``diag`` also holds ``mode_swap_accept`` (per application, over the
-    sampling window).
+    sampling window). The call is span ``hmc.query``, which opens a new
+    query id (``utils.metrics.span``).
     """
     if collect not in ("samples", "moments"):
         raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
-    fg.require_whole("run_hmc")
-    fg, cfg = _ensure_mode_swap_plan(fg, cfg)
-    dev = fg.device
-    C = local_count(n_chains, shard)
-    gen, shared = ((gen, gen) if shard is None
-                   else split_generator(gen, shard.rank))
-    state = init_hmc_state(fg, gen, cfg, C)
-    gate = _gate(cfg, shared)
+    with span("hmc.query", new_query=True):
+        fg.require_whole("run_hmc")
+        fg, cfg = _ensure_mode_swap_plan(fg, cfg)
+        dev = fg.device
+        C = local_count(n_chains, shard)
+        gen, shared = ((gen, gen) if shard is None
+                       else split_generator(gen, shard.rank))
+        state = init_hmc_state(fg, gen, cfg, C)
+        gate = _gate(cfg, shared)
 
-    def trans(s, adapt):
-        return hmc_transition(fg, cfg, s, gen, adapt, gate, shard)
+        def trans(s, adapt):
+            return hmc_transition(fg, cfg, s, gen, adapt, gate, shard)
 
-    state = run_warmup(fg, cfg, state, n_warmup, trans)
-    # the move's acceptance is reported for the sampling window only
-    state = state._replace(ms_acc_sum=_scalar(0.0, dev),
-                           ms_acc_n=_scalar(0.0, dev))
+        state = run_warmup(fg, cfg, state, n_warmup, trans)
+        # the move's acceptance is reported for the sampling window only
+        state = state._replace(ms_acc_sum=_scalar(0.0, dev),
+                               ms_acc_n=_scalar(0.0, dev))
 
-    def sample_step(state):
-        # as the reference's fori_loop carry: the block reports the LAST
-        # transition's mean acceptance (reference hmc.py:900-910)
-        for _ in range(thin):
-            state, acc = trans(state, False)
-        return state, torch.mean(acc)
+        def sample_step(state):
+            # as the reference's fori_loop carry: the block reports the LAST
+            # transition's mean acceptance (reference hmc.py:900-910)
+            for _ in range(thin):
+                state, acc = trans(state, False)
+            return state, torch.mean(acc)
 
-    acc_total = torch.zeros((), device=dev)
+        acc_total = torch.zeros((), device=dev)
 
-    def base_diag(state):
-        acc = all_reduce(acc_total, shard) / n_chain_shards(shard)
-        return {
-            "accept_rate": acc / max(n_samples, 1),
-            "step_size": torch.exp(state.log_eps),
-            "inv_mass": state.inv_mass,
-            **_ms_diag(cfg, state, shard),
-        }
+        def base_diag(state):
+            acc = all_reduce(acc_total, shard) / n_chain_shards(shard)
+            return {
+                "accept_rate": acc / max(n_samples, 1),
+                "step_size": torch.exp(state.log_eps),
+                "inv_mass": state.inv_mass,
+                **_ms_diag(cfg, state, shard),
+            }
 
-    if collect == "moments":
-        ms = _MomentStream(fg, n_chains, n_samples, stream_diag,
-                           disc_diag_cap, shard)
-        for t in range(n_samples):
+        if collect == "moments":
+            ms = _MomentStream(fg, n_chains, n_samples, stream_diag,
+                               disc_diag_cap, shard)
+            for t in range(n_samples):
+                state, acc = sample_step(state)
+                acc_total = acc_total + acc
+                ms.update(t, state.xc, state.xd)
+            moments, stream = ms.finalize()
+            return moments, None, {**base_diag(state), **stream}
+
+        s_xc, s_xd = [], []
+        for _ in range(n_samples):
             state, acc = sample_step(state)
             acc_total = acc_total + acc
-            ms.update(t, state.xc, state.xd)
-        moments, stream = ms.finalize()
-        return moments, None, {**base_diag(state), **stream}
-
-    s_xc, s_xd = [], []
-    for _ in range(n_samples):
-        state, acc = sample_step(state)
-        acc_total = acc_total + acc
-        s_xc.append(state.xc)
-        s_xd.append(state.xd)
-    diag = base_diag(state)
-    if not s_xc:
-        return (torch.zeros((0, C, fg.n_cont), device=dev),
-                torch.zeros((0, C, fg.n_disc), dtype=torch.int64,
-                            device=dev), diag)
-    return torch.stack(s_xc), torch.stack(s_xd), diag
+            s_xc.append(state.xc)
+            s_xd.append(state.xd)
+        diag = base_diag(state)
+        if not s_xc:
+            return (torch.zeros((0, C, fg.n_cont), device=dev),
+                    torch.zeros((0, C, fg.n_disc), dtype=torch.int64,
+                                device=dev), diag)
+        return torch.stack(s_xc), torch.stack(s_xd), diag
 
 
 def _to_numpy(v):

@@ -32,6 +32,7 @@ import torch
 
 from lhvi_tpu_torch.ops import _build
 from lhvi_tpu_torch.ops.leapfrog import _check_f32, eps_tensor
+from lhvi_tpu_torch.utils.metrics import count
 
 # Widest embedded row K2 and K6 take: at 28,672 lanes a cluster of 8
 # blocks holds 3,584 lanes each, with their lane constants and at least two
@@ -294,7 +295,7 @@ def _cuda_dia_leapfrog(x, p, diag, offsets, wdia, h, im, eps, n_steps: int,
         lp1.data_ptr(), C, n, n_emb, K, ctypes.cast(offs, ctypes.c_void_p),
         int(n_steps), *geo, stream)
     _build.check(code, "dia_leapfrog")
-    dia_quad_leapfrog.launches += 1
+    count("ops.k6.launches")
     return xo, po, lp0, lp1
 
 
@@ -307,7 +308,7 @@ def dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
     order embedding) is applied once around the whole trajectory.
 
     CUDA tensors go through kernel K6 (``csrc/dia_leapfrog.cu``;
-    ``dia_quad_leapfrog.launches`` counts its launches), f32 only, at most
+    counter ``ops.k6.launches`` counts its launches), f32 only, at most
     ``DIA_MAX_EMB`` embedded lanes and 8 offsets; CPU tensors through the
     plain version ``_torch_dia_leapfrog``. ``n_steps == 0`` returns x and
     p unchanged and lp0 twice on both routes.
@@ -321,9 +322,6 @@ def dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
         raise NotImplementedError(f"dia_quad_leapfrog: no route for {x.device}")
     return _around_pos(_torch_dia_leapfrog, x, p, diag, offsets, wdia, h,
                        inv_mass, eps, n_steps, pos)
-
-
-dia_quad_leapfrog.launches = 0
 
 
 # XORed into K2's Philox key so that its counters, laid out (lane quad,
@@ -373,7 +371,7 @@ def _cuda_dia_proposal(x, diag, offsets, wdia, h, im, eps, n_steps: int,
         ctypes.cast(offs, ctypes.c_void_p), int(n_steps),
         seed & (2**64 - 1), offset & (2**64 - 1), *geo, stream)
     _build.check(code, "dia_proposal")
-    dia_hmc_proposal.launches += 1
+    count("ops.k2.launches")
     return xo, log_acc
 
 
@@ -386,7 +384,7 @@ def dia_hmc_proposal(gen, xc, diag, offsets, wdia, h, inv_mass, eps,
     EMBEDDED coordinates (``pos`` and its inverse ``inv``); gap lanes get
     std 0 via their zero inv_mass.
 
-    CUDA tensors go through kernel K2 (``dia_hmc_proposal.launches`` counts
+    CUDA tensors go through kernel K2 (counter ``ops.k2.launches`` counts
     its launches) on the latent rows and latent diag, h and inv_mass: the
     kernel reads them through ``inv`` (once per launch for the constants),
     so no embedded copy is built on the host and a mass refresh in place
@@ -432,6 +430,3 @@ def dia_hmc_proposal(gen, xc, diag, offsets, wdia, h, inv_mass, eps,
     log_acc = torch.where(torch.isfinite(log_acc), log_acc,
                           torch.full((), -math.inf, device=log_acc.device))
     return x1, log_acc
-
-
-dia_hmc_proposal.launches = 0

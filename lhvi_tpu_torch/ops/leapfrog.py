@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from lhvi_tpu_torch.ops import _build
+from lhvi_tpu_torch.utils.metrics import count
 
 
 def _torch_quad_leapfrog(x, p, J, h, inv_mass, eps, n_steps: int):
@@ -153,7 +154,7 @@ def _cuda_quad_leapfrog(x, p, J, h, inv_mass, eps, n_steps: int):
         None if scratch is None else scratch.data_ptr(),
         None if barrier is None else barrier.data_ptr(), stream)
     _build.check(code, "quad_leapfrog")
-    quad_leapfrog.launches += 1
+    count("ops.k1.launches")
     return xo, po
 
 
@@ -161,7 +162,7 @@ def quad_leapfrog(x, p, J, h, inv_mass, eps, n_steps: int):
     """Batched leapfrog on the fused quadratic target.
 
     x, p: [C, n]; J: [n, n]; h, inv_mass: [n]; eps: float or 0-d tensor.
-    CUDA tensors go through kernel K1 (``quad_leapfrog.launches`` counts
+    CUDA tensors go through kernel K1 (counter ``ops.k1.launches`` counts
     its launches); CPU tensors through the plain version.
     """
     if x.is_cuda:
@@ -169,9 +170,6 @@ def quad_leapfrog(x, p, J, h, inv_mass, eps, n_steps: int):
     if x.device.type != "cpu":
         raise NotImplementedError(f"quad_leapfrog: no route for {x.device}")
     return _torch_quad_leapfrog(x, p, J, h, inv_mass, eps, n_steps)
-
-
-quad_leapfrog.launches = 0
 
 
 def ell_matvec(x, diag, col, w):

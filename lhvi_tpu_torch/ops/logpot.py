@@ -57,6 +57,7 @@ from lhvi_tpu_torch.ops.logpot_tape import (
     tape_reverse,
     trace_planar,
 )
+from lhvi_tpu_torch.utils.metrics import count
 
 _LANE = 128  # the reference's footprint estimate counts 128-lane padding
 # K5's shared memory per block (csrc/logpot_leapfrog.cu, kSmemLimit)
@@ -547,7 +548,7 @@ def _cuda_logpot_leapfrog(plan, x, p, dv, inv_mass, eps, beta, base_mid,
         plan.max_tape, int(n_steps), geo.threads, geo.chains,
         int(geo.stage), int(geo.j_smem), geo.smem, stream)
     _build.check(code, "logpot_leapfrog")
-    logpot_leapfrog.launches += 1
+    count("ops.k5.launches")
     return xo, po, e0, e1
 
 
@@ -631,7 +632,7 @@ def logpot_leapfrog(fg, x, p, xd, inv_mass, eps, n_steps: int,
     plan's energies, as the reference's ``logpot.py:519-521``).
 
     ``plan=None`` runs the autograd path; ``plan="auto"`` or a plan runs
-    K5 on CUDA tensors (``logpot_leapfrog.launches`` counts its launches)
+    K5 on CUDA tensors (counter ``ops.k5.launches`` counts its launches)
     and its plain twin on CPU tensors. On CUDA tensors ``"auto"`` is
     :func:`kernel_plan`, which raises where K5 cannot run the graph; on
     CPU tensors it is the autograd path.
@@ -650,6 +651,3 @@ def logpot_leapfrog(fg, x, p, xd, inv_mass, eps, n_steps: int,
         raise NotImplementedError(f"logpot_leapfrog: no route for {x.device}")
     return _run_plan(route, fg, plan, x, p, xd, inv_mass, eps, n_steps,
                      beta, base_mid, base_inv_s2)
-
-
-logpot_leapfrog.launches = 0

@@ -23,6 +23,7 @@ import torch
 
 from lhvi_tpu_torch.ops import _build
 from lhvi_tpu_torch.ops.leapfrog import _check_f32, eps_tensor
+from lhvi_tpu_torch.utils.metrics import count
 
 # XORed into K3's Philox key so that its counters, laid out (chain, step,
 # offset), never reproduce the bits of PyTorch's own Philox draws from the
@@ -185,7 +186,7 @@ def _cuda_nuts_traj(q0, p0, J, h, inv_mass, eps, max_depth: int,
         0 if geo.layout == "warp" else 1, geo.slots, geo.warps, geo.smem,
         geo.grid, geo.k_tile, stream)
     _build.check(code, "nuts_traj")
-    nuts_trajectory.launches += 1
+    count("ops.k3.launches")
     return qp, sum_acc, n_leaf, depth, diverged
 
 
@@ -197,7 +198,7 @@ def nuts_trajectory(fg, gen, xc, eps, inv_mass, max_depth: int,
 
     Momenta ``p0 = std·N(0, 1)`` are the first draw from ``gen``, as in
     the reference. CUDA tensors then go through K3
-    (``nuts_trajectory.launches`` counts its launches), whose uniforms come
+    (counter ``ops.k3.launches`` counts its launches), whose uniforms come
     from Philox keyed by ``gen.initial_seed()`` and ``gen``'s Philox
     offset, which the call advances as a draw of its own would. CPU tensors
     go through the plain version. ``uniforms`` ([3, 2^max_depth, C]: the
@@ -223,6 +224,3 @@ def nuts_trajectory(fg, gen, xc, eps, inv_mass, max_depth: int,
 
     return _nuts_sweep_batched(fg, gen, xc, None, eps, inv_mass, max_depth,
                                traj_kernel=False, uniforms=uniforms)
-
-
-nuts_trajectory.launches = 0

@@ -21,6 +21,7 @@ import torch
 
 from lhvi_tpu_torch.ops import _build
 from lhvi_tpu_torch.ops.leapfrog import _check_f32, _round_up
+from lhvi_tpu_torch.utils.metrics import count
 
 
 def _torch_weight_pipeline(log_w):
@@ -133,7 +134,7 @@ def _cuda_weight_pipeline(log_w):
                if geo.scratch else None)
     p = out.data_ptr()
     _k4_ptrs(log_w, p, p + 4 * n4, stats.data_ptr(), geo, scratch)
-    weight_pipeline.launches += 1
+    count("ops.k4.launches")
     lwn, _, cum, _ = out.split_with_sizes([n, n4 - n, n, n4 - n])
     step_z, ess = stats.unbind()
     return lwn, cum, step_z, ess
@@ -145,7 +146,7 @@ def weight_pipeline(log_w):
     ``cum`` is the inclusive cumulative of the normalized weights — feed it
     to :func:`systematic_parents`. ``step_z`` and ``ess`` are 0-d tensors on
     ``log_w``'s device. CUDA tensors go through kernel K4
-    (``weight_pipeline.launches`` counts its launches); CPU tensors through
+    (counter ``ops.k4.launches`` counts its launches); CPU tensors through
     the plain version.
     """
     if log_w.is_cuda:
@@ -153,9 +154,6 @@ def weight_pipeline(log_w):
     if log_w.device.type != "cpu":
         raise NotImplementedError(f"weight_pipeline: no route for {log_w.device}")
     return _torch_weight_pipeline(log_w)
-
-
-weight_pipeline.launches = 0
 
 
 def systematic_parents(u0, cum, n: int):

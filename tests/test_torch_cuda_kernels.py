@@ -17,6 +17,7 @@ torch.set_num_threads(1)
 import lhvi_tpu_torch as lt  # noqa: E402
 from lhvi_tpu_torch.models.toy import gaussian_grid  # noqa: E402
 from lhvi_tpu_torch.ops import dia, leapfrog as lf  # noqa: E402
+from lhvi_tpu_torch.utils.metrics import counters  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -60,11 +61,11 @@ def test_quad_leapfrog_kernel_matches_plain(dev, n, C, n_steps):
     h = torch.randn((n,), generator=g, device=dev)
     im = 0.5 + torch.rand((n,), generator=g, device=dev)
     eps = torch.full((), 0.07, device=dev)
-    before = lf.quad_leapfrog.launches
+    before = counters()["ops.k1.launches"]
     got = lf.quad_leapfrog(x, p, J, h, im, eps, n_steps)
     want = lf._torch_quad_leapfrog(x, p, J, h, im, eps, n_steps)
     torch.cuda.synchronize()
-    assert lf.quad_leapfrog.launches == before + 1
+    assert counters()["ops.k1.launches"] == before + 1
     for a, b in zip(got, want):
         assert _rel(a, b) < 1e-5
 
@@ -134,10 +135,10 @@ def test_dia_proposal_kernel_given_p0_matches_plain(dev, grid32, dia_grids,
     p0 = torch.randn((C, n), generator=g, device=dev)
     args = (diag, offs, wdia, h, im, torch.full((), 0.1, device=dev), n_steps)
     kw = dict(pos=pos, inv=inv, p0=p0)
-    before = dia.dia_hmc_proposal.launches
+    before = counters()["ops.k2.launches"]
     x1, lacc = dia.dia_hmc_proposal(g, xc, *args, **kw)
     torch.cuda.synchronize()
-    assert dia.dia_hmc_proposal.launches == before + 1
+    assert counters()["ops.k2.launches"] == before + 1
     cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
     x1p, laccp = dia.dia_hmc_proposal(
         None, xc.cpu(), *map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
@@ -190,7 +191,7 @@ def test_transitions_never_sync_with_the_host(dev, rows, quad_max_n):
     cfg = hmc.HMCConfig(init_step_size=0.1)
     gen = torch.Generator(dev).manual_seed(0)
     state = hmc.init_hmc_state(fg, gen, cfg, 128)
-    launches = lf.quad_leapfrog.launches + dia.dia_hmc_proposal.launches
+    launches = counters()["ops.k1.launches"] + counters()["ops.k2.launches"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -198,7 +199,7 @@ def test_transitions_never_sync_with_the_host(dev, rows, quad_max_n):
             state, acc = hmc.hmc_transition(fg, cfg, state, gen, True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert (lf.quad_leapfrog.launches + dia.dia_hmc_proposal.launches
+    assert (counters()["ops.k1.launches"] + counters()["ops.k2.launches"]
             == launches + 3)
     assert torch.isfinite(state.xc).all() and torch.isfinite(state.log_eps)
 
@@ -213,10 +214,10 @@ def test_dia_runs_on_one_generator_draw_fresh_momenta(dev, grid32):
     cfg = hmc.HMCConfig(init_step_size=0.1)
     gen = torch.Generator(dev).manual_seed(0)
     state = hmc.init_hmc_state(fg, gen, cfg, 16)
-    before = dia.dia_hmc_proposal.launches
+    before = counters()["ops.k2.launches"]
     runs = [hmc.hmc_transition(fg, cfg, state, gen, False)[0].xc
             for _ in range(2)]
-    assert dia.dia_hmc_proposal.launches == before + 2
+    assert counters()["ops.k2.launches"] == before + 2
     moved = [(r != state.xc).any(dim=1) for r in runs]
     both = moved[0] & moved[1]
     assert bool(both.any())
@@ -266,10 +267,10 @@ def test_dia_leapfrog_kernel_matches_plain(dev, dia_grids, rows, C, n_steps):
     x = 2.0 * torch.randn((C, n), generator=g, device=dev)
     p = torch.randn((C, n), generator=g, device=dev) / torch.sqrt(im)
     consts = (diag, offs, wdia, h, im, torch.full((), 0.05, device=dev))
-    before = dia.dia_quad_leapfrog.launches
+    before = counters()["ops.k6.launches"]
     got = dia.dia_quad_leapfrog(x, p, *consts, n_steps, pos=pos)
     torch.cuda.synchronize()
-    assert dia.dia_quad_leapfrog.launches == before + 1
+    assert counters()["ops.k6.launches"] == before + 1
     for dt, tol_l in ((torch.float32, 1e-5), (torch.float64, 2e-6)):
         cast = [a.to(dt) if isinstance(a, torch.Tensor) else a
                 for a in (x, p) + consts]
@@ -287,7 +288,7 @@ def test_dia_leapfrog_kernel_rejects_bad_input(dev):
     n = dia.DIA_MAX_EMB + 1
     x = torch.zeros((2, n), device=dev)
     v = torch.ones(n, device=dev)
-    before = dia.dia_quad_leapfrog.launches
+    before = counters()["ops.k6.launches"]
     with pytest.raises(ValueError, match="DIA_MAX_EMB"):
         dia.dia_quad_leapfrog(x, x, v, (1,), torch.zeros((1, n), device=dev),
                               v, v, 0.1, 2)
@@ -299,7 +300,7 @@ def test_dia_leapfrog_kernel_rejects_bad_input(dev):
     with pytest.raises(TypeError):
         dia.dia_quad_leapfrog(x.double(), x.double(), v.double(), (1,),
                               w.double(), v.double(), v.double(), 0.1, 2)
-    assert dia.dia_quad_leapfrog.launches == before
+    assert counters()["ops.k6.launches"] == before
 
 
 def test_dia_kernels_alternate_geometries(dev, dia_grids):
@@ -377,10 +378,10 @@ def test_nuts_traj_kernel_matches_plain(dev, n, C, D):
     if spread:  # every 7th chain 1,000 times the momentum: its energy
         p0[::7] *= 1e3  # error passes 1,000 at the first leaf, a divergence
     eps = torch.full((), 0.9 / n**0.25, device=dev)
-    before = nt.nuts_trajectory.launches
+    before = counters()["ops.k3.launches"]
     got = nt._cuda_nuts_traj(q0, p0, J, h, im, eps, D, uniforms=U)
     torch.cuda.synchronize()
-    assert nt.nuts_trajectory.launches == before + 1
+    assert counters()["ops.k3.launches"] == before + 1
     fg = dataclasses.replace(
         lt.compile_graph(gaussian_grid(2, 2, seed=0, evidence_frac=0.0)[0],
                          dev),
@@ -488,10 +489,10 @@ def test_weight_pipeline_kernel_matches_plain(dev, N, scale):
 
     g = torch.Generator(dev).manual_seed(N)
     lw = scale * torch.randn((N,), generator=g, device=dev)
-    before = rs.weight_pipeline.launches
+    before = counters()["ops.k4.launches"]
     got = rs.weight_pipeline(lw)
     torch.cuda.synchronize()
-    assert rs.weight_pipeline.launches == before + 1
+    assert counters()["ops.k4.launches"] == before + 1
     _check_weights(got, lw)
 
 
@@ -598,8 +599,6 @@ def test_nuts_and_smc_steps_never_sync_with_the_host(dev):
     temperature (reweight, K4, resample, two moves) read nothing back."""
     from lhvi_tpu_torch.engines import hmc, nuts, smc
     from lhvi_tpu_torch.models.lds import kalman_lds
-    from lhvi_tpu_torch.ops import nuts_traj as nt
-    from lhvi_tpu_torch.ops import resample as rs
 
     g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
     fg = lt.compile_graph(g, dev)
@@ -617,7 +616,7 @@ def test_nuts_and_smc_steps_never_sync_with_the_host(dev):
                       torch.full((N,), -float(np.log(N)), device=dev),
                       torch.zeros((), device=dev))
     betas = torch.linspace(0.0, 1.0, 51, device=dev)
-    launches = nt.nuts_trajectory.launches + rs.weight_pipeline.launches
+    launches = counters()["ops.k3.launches"] + counters()["ops.k4.launches"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -632,7 +631,7 @@ def test_nuts_and_smc_steps_never_sync_with_the_host(dev):
             st = st._replace(xc=xc, xd=xd)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert (nt.nuts_trajectory.launches + rs.weight_pipeline.launches
+    assert (counters()["ops.k3.launches"] + counters()["ops.k4.launches"]
             == launches + 4)
     assert torch.isfinite(state.xc).all() and torch.isfinite(st.xc).all()
 
@@ -737,11 +736,11 @@ def test_logpot_leapfrog_kernel_matches_tape(dev, model, C, n_steps,
                   base_mid=0.5 * (lo + hi),
                   base_inv_s2=torch.full((n,), 0.25, device=dev))
     args = (fg, x, p, xd, im, torch.full((), 0.04, device=dev), n_steps)
-    before = logpot.logpot_leapfrog.launches
+    before = counters()["ops.k5.launches"]
     got = logpot.logpot_leapfrog(*args, plan="auto", **kw)
     want = logpot.tape_logpot_leapfrog(*args, plan=plan, **kw)
     torch.cuda.synchronize()
-    assert logpot.logpot_leapfrog.launches == before + 1
+    assert counters()["ops.k5.launches"] == before + 1
     assert _rel(got[0], want[0]) < 1e-4 and _rel(got[1], want[1]) < 1e-4
     assert _rel(got[2], want[2]) < 2e-4 and _rel(got[3], want[3]) < 2e-4
     if n_steps == 0:
@@ -772,14 +771,13 @@ def test_hybrid_transitions_never_sync_with_the_host(dev):
     planned Gibbs sweep and the K5 proposal read nothing back (after a
     first transition that builds and uploads the plan)."""
     from lhvi_tpu_torch.engines import hmc
-    from lhvi_tpu_torch.ops import logpot
 
     fg = lt.compile_graph(_logpot_model("robot10"), dev)
     cfg = hmc.HMCConfig(n_leapfrog=4, init_step_size=0.05, fused_logpot=True)
     gen = torch.Generator(dev).manual_seed(0)
     state = hmc.init_hmc_state(fg, gen, cfg, 256)
     state, _ = hmc.hmc_transition(fg, cfg, state, gen, True)
-    before = logpot.logpot_leapfrog.launches
+    before = counters()["ops.k5.launches"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -787,7 +785,7 @@ def test_hybrid_transitions_never_sync_with_the_host(dev):
             state, _ = hmc.hmc_transition(fg, cfg, state, gen, True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert logpot.logpot_leapfrog.launches == before + 2
+    assert counters()["ops.k5.launches"] == before + 2
     assert torch.isfinite(state.xc).all()
 
 

@@ -19,8 +19,7 @@ import lhvi_tpu_torch as lt
 from lhvi_tpu_torch.engines import hmc, nuts
 from lhvi_tpu_torch.engines.resumable import sample_checkpointed
 from lhvi_tpu_torch.models.toy import gaussian_grid
-from lhvi_tpu_torch.ops.leapfrog import quad_leapfrog
-from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
+from lhvi_tpu_torch.utils.metrics import counters
 
 pytestmark = pytest.mark.cuda
 
@@ -41,13 +40,13 @@ def test_resume_on_the_card_is_bitwise(dev, tmp_path, engine):
     fg = lt.compile_graph(g, dev)
     cfg = (hmc.HMCConfig(n_leapfrog=8, init_step_size=0.12) if engine == "hmc"
            else nuts.NUTSConfig(max_depth=4, init_step_size=0.12))
-    counter = quad_leapfrog if engine == "hmc" else nuts_trajectory
+    counter = "ops.k1.launches" if engine == "hmc" else "ops.k3.launches"
     kw = dict(engine=engine, n_chains=4096, n_warmup=40, n_samples=40,
               chunk_size=20)
-    before = counter.launches
+    before = counters()[counter]
     full = sample_checkpointed(fg, torch.Generator(dev).manual_seed(1), cfg,
                                ckpt_dir=str(tmp_path / "a"), **kw)
-    assert counter.launches - before == 80
+    assert counters()[counter] - before == 80
     for stop in (dict(_interrupt_warmup_after=1), dict(_interrupt_after=1)):
         assert sample_checkpointed(fg, torch.Generator(dev).manual_seed(1),
                                    cfg, ckpt_dir=str(tmp_path / "b"),

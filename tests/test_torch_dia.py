@@ -28,6 +28,7 @@ import lhvi_tpu_torch as lt  # noqa: E402
 import lhvi_tpu_torch.models.toy as toy  # noqa: E402
 from lhvi_tpu_torch.ops import dia  # noqa: E402
 from lhvi_tpu_torch.ops.leapfrog import ell_matvec  # noqa: E402
+from lhvi_tpu_torch.utils.metrics import counters  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -165,7 +166,7 @@ def test_dia_hmc_proposal_cpu_draw_is_plain(grids):
     _, _, fg = grids
     x = torch.zeros(4, fg.n_cont)
     im = torch.full((fg.n_cont,), 2.0)
-    before = dia.dia_hmc_proposal.launches
+    before = counters()["ops.k2.launches"]
     a = dia.dia_hmc_proposal(torch.Generator().manual_seed(5), x,
                              fg.quad_diag, fg.quad_dia_offsets,
                              fg.quad_dia_w, fg.quad_h, im, 0.05, 4,
@@ -174,7 +175,7 @@ def test_dia_hmc_proposal_cpu_draw_is_plain(grids):
                              fg.quad_diag, fg.quad_dia_offsets,
                              fg.quad_dia_w, fg.quad_h, im, 0.05, 4,
                              pos=fg.quad_dia_pos, inv=fg.quad_dia_inv)
-    assert dia.dia_hmc_proposal.launches == before
+    assert counters()["ops.k2.launches"] == before
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.isfinite(a[0]).all() and (a[1] <= 0).all()
 
@@ -208,11 +209,11 @@ def test_dia_quad_leapfrog_matches_pallas_kernel(grid16, n_steps):
             jnp.asarray(ins[3]), jnp.asarray(ins[4]), jnp.asarray(0.07),
             fg.quad_dia_offsets, n_steps)
     t = [torch.from_numpy(a) for a in ins]
-    before = dia.dia_quad_leapfrog.launches
+    before = counters()["ops.k6.launches"]
     got = dia.dia_quad_leapfrog(t[0], t[1], t[2], fg.quad_dia_offsets,
                                 torch.from_numpy(wdia), t[3], t[4], 0.07,
                                 n_steps)
-    assert dia.dia_quad_leapfrog.launches == before
+    assert counters()["ops.k6.launches"] == before
     for a, b, name in zip(got, want, ("x1", "p1", "lp0", "lp1")):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-5, err_msg=(name, n_steps))
@@ -237,10 +238,10 @@ def test_dia_quad_leapfrog_with_pos_matches_reference(grid16, n_steps):
     args = (torch.from_numpy(x), torch.from_numpy(p), fg.quad_diag,
             fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h,
             torch.from_numpy(im), 0.05, n_steps)
-    before = dia.dia_quad_leapfrog.launches
+    before = counters()["ops.k6.launches"]
     got = dia.dia_quad_leapfrog(*args, pos=fg.quad_dia_pos)
     plain = dia._plain_dia_quad_leapfrog(*args, pos=fg.quad_dia_pos)
-    assert dia.dia_quad_leapfrog.launches == before
+    assert counters()["ops.k6.launches"] == before
     for a, b, c, name in zip(got, want, plain, ("x1", "p1", "lp0", "lp1")):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-5, err_msg=(name, n_steps))

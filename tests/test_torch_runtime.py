@@ -1,7 +1,7 @@
 """The port's runtime utilities held to the JAX reference: sampler
 diagnostics (``utils/diagnostics.py``), the experiment configs
-(``config.py``), the metrics logger and profiler trace
-(``utils/metrics.py``), checkpoints (``utils/checkpoint.py``), the NaN
+(``config.py``), the metrics logger, the profiler trace and the spans and
+counters (``utils/metrics.py``), checkpoints (``utils/checkpoint.py``), the NaN
 checks (``utils/debug.py``), the chain-sharding helpers that need no
 process group (``parallel/mesh.py``) and the public surface.
 
@@ -13,6 +13,7 @@ import argparse
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -33,7 +34,7 @@ import lhvi_tpu_torch.utils as utils  # noqa: E402
 from lhvi_tpu_torch.engines import hmc  # noqa: E402
 from lhvi_tpu_torch.models.toy import gaussian_grid, hybrid_chain  # noqa: E402
 from lhvi_tpu_torch.parallel import ChainShard, local_count, split_generator  # noqa: E402
-from lhvi_tpu_torch.utils import debug, diagnostics  # noqa: E402
+from lhvi_tpu_torch.utils import debug, diagnostics, metrics  # noqa: E402
 from lhvi_tpu_torch.utils.checkpoint import CheckpointManager  # noqa: E402
 from lhvi_tpu_torch.utils.metrics import MetricsLogger, profile_trace  # noqa: E402
 
@@ -140,6 +141,97 @@ def test_profile_trace_writes_a_trace(tmp_path):
     files = os.listdir(tmp_path / "tr")
     assert len(files) == 1 and files[0].endswith(".json")
     assert "traceEvents" in json.loads((tmp_path / "tr" / files[0]).read_text())
+
+
+@pytest.fixture
+def fresh_tracing():
+    """Tracing off and no records or counts, before and after."""
+    metrics.enable_tracing(False)
+    metrics.reset_tracing()
+    yield
+    metrics.enable_tracing(False)
+    metrics.reset_tracing()
+
+
+def test_spans_nest_with_parent_and_query(fresh_tracing):
+    """A span records its enclosing span's index and its query's id; a
+    ``new_query`` span opens the next id, and the spans inside share it."""
+    with metrics.tracing():
+        assert metrics.tracing_enabled()
+        with metrics.span("loose"):
+            pass
+        for _ in range(2):
+            with metrics.span("q", new_query=True):
+                with metrics.span("a"):
+                    with metrics.span("b"):
+                        metrics.count("n", 2)
+                with metrics.span("a"):
+                    pass
+    assert not metrics.tracing_enabled()
+    got = [(s.name, s.parent, s.query) for s in metrics.spans()]
+    assert got == [("loose", -1, -1),
+                   ("q", -1, 0), ("a", 1, 0), ("b", 2, 0), ("a", 1, 0),
+                   ("q", -1, 1), ("a", 5, 1), ("b", 6, 1), ("a", 5, 1)]
+    for s in metrics.spans():
+        assert 0 < s.start_ns <= s.end_ns
+        if s.parent >= 0:
+            p = metrics.spans()[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+    assert metrics.counters() == {"n": 4} and metrics.counters()["m"] == 0
+    metrics.reset_tracing()
+    assert metrics.spans() == [] and metrics.counters() == {}
+
+
+def test_tracing_off_records_nothing_and_reads_no_clock(fresh_tracing,
+                                                        monkeypatch):
+    """Off, a span is the shared no-op context: a whole query records no
+    span and reads no clock, while the counters still count."""
+    def no_clock():
+        raise AssertionError("a clock was read with tracing off")
+
+    monkeypatch.setattr(time, "perf_counter_ns", no_clock)
+    assert metrics.span("x") is metrics.span("y", new_query=True)
+    g, _ = gaussian_grid(3, 3, seed=0, evidence_frac=0.2)
+    fg = lt.compile_graph(g, "cpu")
+    hmc.run_hmc(fg, torch.Generator().manual_seed(0),
+                hmc.HMCConfig(n_leapfrog=2), n_chains=4, n_warmup=2,
+                n_samples=3, collect="moments")
+    assert metrics.spans() == []
+    assert metrics.counters() == {"hmc.transitions": 5, "hmc.draws": 3}
+
+
+def test_run_hmc_spans_under_the_profiler(fresh_tracing):
+    """A moments query with tracing on and ``torch.profiler`` running:
+    every transition and every draw step is a user annotation of the
+    profiler's trace, all inside the query's, and the in-memory spans and
+    the counters agree with them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g, _ = gaussian_grid(3, 3, seed=0, evidence_frac=0.2)
+    fg = lt.compile_graph(g, "cpu")
+    n_warmup, n_samples = 3, 4
+    with metrics.tracing(), profile(activities=[ProfilerActivity.CPU]) as p:
+        hmc.run_hmc(fg, torch.Generator().manual_seed(0),
+                    hmc.HMCConfig(n_leapfrog=2), n_chains=4,
+                    n_warmup=n_warmup, n_samples=n_samples,
+                    collect="moments")
+    notes = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in p.profiler.kineto_results.events()
+             if e.activity_type() == "user_annotation"]
+    by_name = {n: [(s, e) for m, s, e in notes if m == n]
+               for n in ("hmc.query", "hmc.transition", "hmc.moments")}
+    assert len(notes) == 1 + n_warmup + 2 * n_samples
+    assert len(by_name["hmc.transition"]) == n_warmup + n_samples
+    assert len(by_name["hmc.moments"]) == n_samples
+    (q0, q1), = by_name["hmc.query"]
+    assert all(q0 <= s <= e <= q1 for _, s, e in notes)
+    recs = metrics.spans()
+    assert [s.name for s in recs].count("hmc.transition") == (n_warmup
+                                                             + n_samples)
+    assert all(s.query == 0 and s.parent == (-1 if s.name == "hmc.query"
+                                             else 0) for s in recs)
+    assert metrics.counters() == {"hmc.transitions": n_warmup + n_samples,
+                                  "hmc.draws": n_samples}
 
 
 def test_checkpoint_manager_round_trip_and_retention(tmp_path):

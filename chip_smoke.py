@@ -117,7 +117,9 @@ Phases (any failure raises and the script exits non-zero):
    and the example scripts at their defaults (``--phase examples``, all at
    once, the pod-scale one as one process among them, each against its
    engine's bound; the scripts' launches happen in their own processes
-   and are not counted here). Each
+   and are not counted here); and the moments path (``--phase moments``:
+   K7 and K8 at the grid cells' shapes, 15,600 latents at 1,024 and
+   16,384 chains, against their plain versions and timed). Each
    is held to exact answers (numpy/scipy oracles, closed forms) or to its
    plain route, and the bench's throughputs are printed (the VI, pod,
    mode-swap, BP, sharded and example rates again on ``[rates]`` lines;
@@ -179,7 +181,7 @@ F32_FLOPS_PER_S = 67e12
 
 
 def kernel_launches(kernel: str) -> int:
-    """Launches of kernel ``kernel`` ("k1" … "k6") the port has counted
+    """Launches of kernel ``kernel`` ("k1" … "k8") the port has counted
     since its counters were last reset."""
     from lhvi_tpu_torch.utils.metrics import counters
 
@@ -910,6 +912,119 @@ def k4_timed_line(dev, N, record=None, device=False):
     if record is not None:
         record[f"ms_n{N}"] = wrapper
     return geo
+
+
+def queued_ms(fn, reps: int = 20) -> tuple:
+    """(device ms, host ms) a call of ``fn()``, ``reps`` calls queued back
+    to back behind a sleeping kernel, so the device runs them without a
+    gap whatever the host's time a call; the host's is the time it took
+    to queue them. Medians of three, after a warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    dev_ms, host_ms = [], []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # ~25 ms: longer than the queuing
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms.append(1e3 * (time.perf_counter() - t0) / reps)
+        b.record()
+        torch.cuda.synchronize()
+        dev_ms.append(a.elapsed_time(b) / reps)
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+def phase_moments(dev, n=15600, chains=(1024, 16384), S=200, reps=20):
+    """K7 and K8 at the grid cells' shapes (15,600 latents, 1,024 and
+    16,384 chains, 200 draws): each kernel's device ms a call through its
+    engine function (``queued_ms``: CUDA events over ``reps`` calls queued
+    back to back), the host's ms to queue a call, its bound and its plain
+    twin's device ms. K7 at an ordinary draw (t = 50: the
+    first pair, the lag-1 product and the batch sum, 10 array passes) and
+    at a batch boundary (t = 55: 14 passes), both checked bitwise against
+    the twin; K8 (one read of xc) against float64 sums, within two f32
+    roundings of |s| + Σ|x| a column, and against its twin, within f32
+    summation error. Returns the kernels' records."""
+    import torch
+
+    from lhvi_tpu_torch.engines import hmc
+
+    half = S // 2
+    bm_len, n_batches = hmc._bm_schedule(S)
+    rows = {"stream_diag": [], "moment_sums": []}
+    for C in chains:
+        g = torch.Generator(dev).manual_seed(C)
+        xc = torch.randn((C, n), generator=g, device=dev) + 2.0
+        sd = hmc._StreamDiag(*(torch.randn((C, n), generator=g, device=dev)
+                               for _ in range(9)))
+        elem = C * n * 4
+        for t, passes in ((50, 10), (55, 14)):
+            args = (sd, t, xc, half, bm_len, n_batches)
+            got = hmc._stream_diag_update(*args)
+            want = hmc._plain_stream_diag_update(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K7 differs from its twin at C={C}, "
+                                     f"t={t}")
+            del got, want
+
+            ms, host = queued_ms(lambda: hmc._stream_diag_update(*args),
+                                 reps)
+            plain_ms, _ = queued_ms(
+                lambda: hmc._plain_stream_diag_update(*args), reps)
+            rec = dict(C=C, n=n, t=t, ms=ms, host_ms=host, plain_ms=plain_ms,
+                       **bound(passes * elem, 8 * C * n))
+            log(f"[K7] C={C} n={n} t={t} ({passes} passes, bitwise equal to "
+                f"the twin): kernel {ms:.4f} ms, bound {rec['bound_ms']:.4f} "
+                f"ms ({ms / rec['bound_ms']:.2f}x), host {host:.4f} ms a "
+                f"call, plain {plain_ms:.4f} ms")
+            rows["stream_diag"].append(rec)
+        s1 = torch.randn((n,), generator=g, device=dev)
+        s2 = torch.rand((n,), generator=g, device=dev)
+        got = hmc._moment_sums(s1, s2, xc)
+        plain = hmc._plain_moment_sums(s1, s2, xc)
+        x = xc.double()
+        err = 0.0
+        for name, s, terms, out, ref in (("s1", s1, x, got[0], plain[0]),
+                                         ("s2", s2, x * x, got[1], plain[1])):
+            exact = s.double() + terms.sum(0)
+            scale = s.double().abs() + terms.abs().sum(0)
+            e = (out.double() - exact).abs()
+            err = max(err, float(e.max()))
+            # two f32 roundings of numbers no larger than scale
+            if not bool((e <= 4 * 2.0**-24 * scale).all()):
+                raise AssertionError(
+                    f"K8 {name} at C={C}: |err| up to "
+                    f"{float((e / scale).max()):.3e} of |s| + sum |x|, "
+                    f"bound 4 * 2^-24")
+            # the twin sums in f32 in ATen's order: no order errs by more
+            # than (C - 1) * 2^-24 of the scale, plus the products and the
+            # add, so the two lie within 2C * 2^-24 of it of each other
+            gap = (out.double() - ref.double()).abs()
+            if not bool((gap <= 2 * C * 2.0**-24 * scale).all()):
+                raise AssertionError(f"K8 {name} at C={C} differs from its "
+                                     f"plain twin beyond f32 summation")
+        del x, plain
+
+        ms, host = queued_ms(lambda: hmc._moment_sums(s1, s2, xc), reps)
+        plain_ms, _ = queued_ms(lambda: hmc._plain_moment_sums(s1, s2, xc),
+                                reps)
+        rec = dict(C=C, n=n, ms=ms, host_ms=host, plain_ms=plain_ms,
+                   max_abs_err=err, **bound(elem + 16 * n, 3 * C * n))
+        log(f"[K8] C={C} n={n}: kernel {ms:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({ms / rec['bound_ms']:.2f}x), host "
+            f"{host:.4f} ms a call, plain {plain_ms:.4f} ms; max |err| "
+            f"against float64 {err:.3e} (within 4 * 2^-24 of |s| + sum |x| "
+            f"in every column, and within f32 summation of the twin)")
+        rows["moment_sums"].append(rec)
+        del xc, sd
+        torch.cuda.empty_cache()
+    return rows
 
 
 def robot_fg(dev, n_segments=100):
@@ -3596,13 +3711,16 @@ def main() -> int:
         k6 = phase_k6(dev)
         log(f"[time] kernel phases {time.perf_counter() - t0:.1f} s")
 
-    kernel_of = {**RANK_KERNELS, "dia_leapfrog": "k6"}
+    kernel_of = {**RANK_KERNELS, "dia_leapfrog": "k6", "stream_diag": "k7",
+                 "moment_sums": "k8"}
     launches = {}
     keep = {}
     # each path: every count set to 0 just before it, read just after
     for path, fn, kernels in (
+            # the slice's moments queries stream their diagnostics: K7 and
+            # K8 once a kept draw
             ("hmc", lambda: phase_slice(dev, smi),
-             ("quad_leapfrog", "dia_proposal")),
+             ("quad_leapfrog", "dia_proposal", "stream_diag", "moment_sums")),
             ("nuts", lambda: phase_nuts(dev, smi), ("nuts_traj",)),
             ("smc", lambda: keep.update(
                 smc_banded64_particle_temps_per_s=phase_smc(dev, smi)[1]),
@@ -3611,6 +3729,9 @@ def main() -> int:
              ("logpot_leapfrog",)),
             ("dia_leapfrog", lambda: path_dia_leapfrog(dev),
              ("dia_leapfrog",)),
+            # K7 and K8 at the grid cells' shapes, checked and timed
+            ("moments", lambda: keep.update(moments=phase_moments(dev)),
+             ("stream_diag", "moment_sums")),
             ("hybrid", lambda: phase_hybrid(dev, smi, keep["robot_hmc"]),
              ("weights",)),
             # VI, the pod cells, the mode-swap move and the BP/MAP engines
@@ -3672,6 +3793,10 @@ def main() -> int:
          "source": "lhvi_tpu_torch/ops/csrc/dia_leapfrog.cu",
          "replaces": "lhvi_tpu/ops/dia.py:184",
          "launches": launches["dia_leapfrog"], **k6},
+        *({"name": name, "route": "cuda",
+           "source": "lhvi_tpu_torch/ops/csrc/moments.cu", "replaces": None,
+           "launches": launches[name], "times": rows}
+          for name, rows in keep["moments"].items()),
     ]
     for k in ("vi_steps_per_s", "vi_lifted_steps_per_s",
               "pod_gibbs_chain_samples_per_s",

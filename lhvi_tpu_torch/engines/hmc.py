@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from lhvi_tpu_torch.fg.compile import _NEG_BIG, CompiledFG
+from lhvi_tpu_torch.ops import moments as _moments
 from lhvi_tpu_torch.ops.dia import _kinetic
 from lhvi_tpu_torch.parallel.mesh import (all_reduce, assemble_rows,
                                           local_count, n_chain_shards,
@@ -548,7 +549,48 @@ def _split_welford_update(h1_mean, h1_m2, h2_mean, h2_m2, t: int, x,
 def _stream_diag_update(sd: _StreamDiag, t: int, xc, half: int,
                         bm_len: int = 0, n_batches: int = 0) -> _StreamDiag:
     """Fold draw ``t`` (0-based) of every chain into the accumulators;
-    every ``bm_len`` draws the batch mean is folded into its Welford pair."""
+    every ``bm_len`` draws the batch mean is folded into its Welford pair.
+    On a CUDA tensor one launch of K7 (``_fused_stream_diag_update``),
+    bitwise equal to the plain version ``_plain_stream_diag_update``,
+    which CPU tensors take."""
+    if xc.is_cuda:
+        return _fused_stream_diag_update(sd, t, xc, half, bm_len, n_batches)
+    return _plain_stream_diag_update(sd, t, xc, half, bm_len, n_batches)
+
+
+def _fused_stream_diag_update(sd: _StreamDiag, t: int, xc, half: int,
+                              bm_len: int = 0,
+                              n_batches: int = 0) -> _StreamDiag:
+    """The plain version's branch, with its arithmetic in one pass of
+    ``ops.moments.stream_diag_update``: the draw's split half (none for the
+    odd-S tail draw), ``cross`` from the second draw on, the batch sum
+    while the batch stream runs and the batch-means pair at a boundary are
+    written anew, the rest kept, and ``prev`` is ``xc``."""
+    first, second = t < half, half <= t < 2 * half
+    cnt = t + 1 - (half if second else 0)
+    pair = ((sd.h1_mean, sd.h1_m2) if first
+            else (sd.h2_mean, sd.h2_m2) if second else (None, None))
+    lag = t > 0
+    bm = bm_len > 0 and n_batches >= 2
+    t1 = t + 1
+    edge = bm and t1 % bm_len == 0 and t1 // bm_len <= n_batches
+    mean, m2, cross, bm_cur, bm_mean, bm_m2 = _moments.stream_diag_update(
+        xc, *pair, *((sd.prev, sd.cross) if lag else (None, None)),
+        sd.bm_cur if bm else None,
+        *((sd.bm_mean, sd.bm_m2) if edge else (None, None)),
+        cnt=cnt, bm_len=bm_len, batch_no=t1 // bm_len if edge else 0)
+    h1 = (mean, m2) if first else (sd.h1_mean, sd.h1_m2)
+    h2 = (mean, m2) if second else (sd.h2_mean, sd.h2_m2)
+    return _StreamDiag(*h1, *h2, cross if lag else sd.cross, xc,
+                       bm_cur if bm else sd.bm_cur,
+                       *((bm_mean, bm_m2) if edge else (sd.bm_mean, sd.bm_m2)))
+
+
+def _plain_stream_diag_update(sd: _StreamDiag, t: int, xc, half: int,
+                              bm_len: int = 0,
+                              n_batches: int = 0) -> _StreamDiag:
+    """Plain version of K7: the accumulators the draw changes anew, the
+    others as they are, and ``prev`` is ``xc``."""
     h1_mean, h1_m2, h2_mean, h2_m2 = _split_welford_update(
         sd.h1_mean, sd.h1_m2, sd.h2_mean, sd.h2_m2, t, xc, half
     )
@@ -696,6 +738,20 @@ def _stream_diag_disc_finalize(sdd: _StreamDiagDisc, n_samples: int) -> dict:
     return {"rhat_disc": torch.where(frozen, torch.ones_like(rhat), rhat)}
 
 
+def _moment_sums(s1, s2, xc) -> tuple:
+    """``(s1 + Σ_c xc, s2 + Σ_c xc²)``, the running sums of the moments:
+    on a CUDA tensor one launch of K8 (``ops/moments.py``), on a CPU
+    tensor the plain version ``_plain_moment_sums``."""
+    if xc.is_cuda:
+        return _moments.moment_sums(s1, s2, xc)
+    return _plain_moment_sums(s1, s2, xc)
+
+
+def _plain_moment_sums(s1, s2, xc) -> tuple:
+    """Plain version of K8."""
+    return s1 + torch.sum(xc, dim=0), s2 + torch.sum(xc * xc, dim=0)
+
+
 def _bm_schedule(n_samples: int) -> tuple:
     """(batch length, batch count) for the batch-means stream: b = ⌊√S⌋;
     (0, 0) when fewer than two complete batches fit."""
@@ -740,8 +796,7 @@ class _MomentStream:
         fg = self.fg
         count("hmc.draws")
         with span("hmc.moments"):
-            self.s1 = self.s1 + torch.sum(xc, dim=0)
-            self.s2 = self.s2 + torch.sum(xc * xc, dim=0)
+            self.s1, self.s2 = _moment_sums(self.s1, self.s2, xc)
             if fg.n_disc:
                 self.cnt = self.cnt + torch.stack(
                     [torch.sum(xd == v, dim=0) for v in range(fg.max_v)],

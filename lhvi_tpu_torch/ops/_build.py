@@ -34,6 +34,7 @@ build_log = ""  # nvcc's output (ptxas register/shared-memory report)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
+_I64 = ctypes.c_int64
 _SIGNATURES = {
     # x, p, J, h, inv_mass, eps, x_out, p_out, C, n, n_steps, layout,
     # chains, warps, smem, grid, j_smem, scratch (or null), barrier (or
@@ -65,6 +66,12 @@ _SIGNATURES = {
     # C, n, n_rows, n_tape, n_buckets, n_segs, n_colors, acm, adm, pm,
     # max_tape, n_steps, threads, chains, stage, j_smem, smem, stream
     "lhvi_logpot_leapfrog": (_P,) * 23 + (_I,) * 17 + (_P,),
+    # xc, prev, mean, m2, cross, bm_cur, bm_mean, bm_m2, then their outputs
+    # mean, m2, cross, bm_cur, bm_mean, bm_m2 (null: that part skipped),
+    # numel, cnt, bm_len, batch_no, vec, threads, grid, stream
+    "lhvi_stream_diag": (_P,) * 14 + (_I64,) + (_I,) * 6 + (_P,),
+    # xc, s1, s2, s1_out, s2_out, C, n, vec, threads, grid, stream
+    "lhvi_moment_sums": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 

@@ -8,7 +8,7 @@ Perfetto or ``chrome://tracing`` opens.
 Spans and counters, the program's view of its own layers:
 
 - ``count(name, n)`` adds to a named integer counter, always (the kernel
-  launches ``ops.k1.launches`` … ``ops.k6.launches``, the sampler's
+  launches ``ops.k1.launches`` … ``ops.k8.launches``, the sampler's
   ``hmc.transitions`` and ``hmc.draws``); ``counters()`` copies them.
 - ``span(name)`` times a block on the host clock (``perf_counter_ns``)
   while tracing is on (``enable_tracing`` or the ``tracing()`` context,

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1–K6) against their plain versions on an
+"""The port's CUDA kernels (K1–K8) against their plain versions on an
 NVIDIA GPU, at shapes that reach the kernels' edge cases (ragged chain
 tiles, both K1 tile configurations, zero steps, gap lanes).
 
@@ -963,3 +963,190 @@ def test_run_hmc_mode_swap_memory_does_not_grow(dev):
         torch.cuda.synchronize()
         peaks.append(torch.cuda.max_memory_allocated(dev) - base)
     assert peaks[2] - peaks[1] < 2**16, peaks
+
+
+# ---- K7 and K8: the sampler's moment and streamed-diagnostics update ----
+
+
+def _ar1_stream(dev, C, n, S, seed):
+    """S draws of C chains × n latents: an AR(1) process around 2 (so the
+    accumulators carry sums far from 0, as the sampler's do)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((C, n), generator=g, device=dev)
+    for _ in range(S):
+        x = 0.8 * x + 0.6 * torch.randn((C, n), generator=g, device=dev)
+        yield (x + 2.0).contiguous()
+
+
+@pytest.mark.parametrize("C,n", [(1024, 15600), (3, 17), (1, 1), (257, 1001)])
+@pytest.mark.parametrize("S", [200, 201, 3, 1])
+def test_stream_diag_kernel_matches_plain(dev, C, n, S):
+    """K7 (``hmc._stream_diag_update`` on the card) against its plain twin
+    over whole streams: the first draw (no lag-1 product), both halves,
+    the odd tail draw (201), every batch boundary (⌊√S⌋ = 14 at 200) and
+    no batches at all (3, 1); rows that are not a multiple of 4 (17, 1,
+    1,001) and the bench's [1,024, 15,600]. The nine accumulators are
+    equal bit for bit (each element is the twin's sequence of f32 ops,
+    one rounding each, ATen's reciprocal for a division by a number), the
+    same ones are passed through at every draw, and the streamed R̂ and
+    ESS of both are equal."""
+    from lhvi_tpu_torch.engines import hmc
+
+    _k7_stream_matches_plain(hmc._stream_diag_init(C, n, dev),
+                             _ar1_stream(dev, C, n, S, C * 7 + n + S), S)
+
+
+def _k7_stream_matches_plain(sd, stream, S):
+    """Run K7 and its plain twin over a whole stream from ``sd``; the nine
+    accumulators and the streamed R̂ and ESS must agree bit for bit, the
+    same arrays pass through at every draw, and K7 launches at every draw
+    that changes more than ``prev``."""
+    from lhvi_tpu_torch.engines import hmc
+
+    half = S // 2
+    bm_len, n_batches = hmc._bm_schedule(S)
+    a = b = sd
+    before = counters()["ops.k7.launches"]
+    work = 0
+    for t, xc in enumerate(stream):
+        na = hmc._stream_diag_update(a, t, xc, half, bm_len, n_batches)
+        nb = hmc._plain_stream_diag_update(b, t, xc, half, bm_len, n_batches)
+        kept = [p is q for p, q in zip(nb, b)]
+        assert [p is q for p, q in zip(na, a)] == kept, t
+        assert na.prev is xc
+        work += not all(kept[:5] + kept[6:])
+        a, b = na, nb
+    torch.cuda.synchronize()
+    assert counters()["ops.k7.launches"] - before == work
+    for name, p, q in zip(hmc._StreamDiag._fields, a, b):
+        assert torch.equal(p, q), (name, float((p - q).abs().max()))
+    fa = hmc._stream_diag_finalize(a, S, bm_len)
+    fb = hmc._stream_diag_finalize(b, S, bm_len)
+    for k in fa:
+        torch.testing.assert_close(fa[k], fb[k], rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+def test_stream_diag_kernel_unaligned_matches_plain(dev):
+    """K7 on arrays that start 4 bytes past a 16-byte boundary (views at
+    storage offset 1) takes its one-element path and still equals its
+    twin bit for bit over a stream with both halves, the tail draw and
+    batch boundaries."""
+    from lhvi_tpu_torch.engines import hmc
+
+    C, n, S = 64, 999, 29
+
+    def offset(t):
+        buf = torch.empty(C * n + 1, device=dev)
+        v = buf[1:].view(C, n)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4
+        return v
+
+    g = torch.Generator(dev).manual_seed(5)
+    sd = hmc._StreamDiag(*(offset(torch.randn((C, n), generator=g,
+                                              device=dev))
+                           for _ in range(9)))
+    stream = (offset(x) for x in _ar1_stream(dev, C, n, S, 6))
+    _k7_stream_matches_plain(sd, stream, S)
+
+
+@pytest.mark.parametrize("C,n", [(1024, 15600), (16384, 15600), (3, 17),
+                                 (1, 1), (257, 1001), (4097, 64)])
+def test_moment_sums_kernel_within_f32_summation_error(dev, C, n):
+    """K8 (``hmc._moment_sums`` on the card) against float64 sums: each
+    column is summed over the chains in double, rounded to f32 and added
+    to the running sum, two f32 roundings of numbers no larger than
+    |s| + Σ_c |x|, so |got − exact| ≤ 4·2⁻²⁴·(|s| + Σ_c |x|) (x² for the
+    second sum); a second call gives the same bits (no atomics)."""
+    from lhvi_tpu_torch.engines import hmc
+
+    g = torch.Generator(dev).manual_seed(C + n)
+    xc = 3.0 * torch.randn((C, n), generator=g, device=dev) + 1.0
+    s1 = C * torch.randn((n,), generator=g, device=dev)
+    s2 = C * torch.rand((n,), generator=g, device=dev)
+    before = counters()["ops.k8.launches"]
+    got = hmc._moment_sums(s1, s2, xc)
+    again = hmc._moment_sums(s1, s2, xc)
+    torch.cuda.synchronize()
+    assert counters()["ops.k8.launches"] == before + 2
+    x = xc.double()
+    for s, terms, out, rep in ((s1, x, got[0], again[0]),
+                               (s2, x * x, got[1], again[1])):
+        exact = s.double() + terms.sum(0)
+        tol = 4 * 2.0**-24 * (s.double().abs() + terms.abs().sum(0))
+        assert bool(((out.double() - exact).abs() <= tol).all())
+        assert torch.equal(out, rep)
+
+
+def test_moment_kernels_reject_bad_input(dev):
+    """K7 and K8 take f32 contiguous tensors of matching shapes on the
+    card and raise on anything else, launching nothing."""
+    from lhvi_tpu_torch.engines import hmc
+
+    sd = hmc._stream_diag_init(4, 8, dev)
+    x = torch.zeros((4, 8), device=dev)
+    s = torch.zeros((8,), device=dev)
+    before = counters()
+    with pytest.raises(TypeError):
+        hmc._stream_diag_update(sd, 1, x.double(), 2)
+    with pytest.raises(ValueError):
+        hmc._stream_diag_update(sd, 1, torch.zeros((8, 4), device=dev).t(), 2)
+    with pytest.raises(ValueError):
+        hmc._stream_diag_update(sd, 1, torch.zeros((4, 9), device=dev), 2)
+    with pytest.raises(TypeError):
+        hmc._moment_sums(s.double(), s, x)
+    with pytest.raises(ValueError):
+        hmc._moment_sums(s, s, torch.zeros((8, 4), device=dev).t())
+    with pytest.raises(ValueError):
+        hmc._moment_sums(s[:4], s, x)
+    for k in ("ops.k7.launches", "ops.k8.launches"):
+        assert counters()[k] == before[k]
+
+
+def test_moment_kernels_run_every_draw_and_diag_frozen_holds(dev,
+                                                             monkeypatch):
+    """A banded ``run_hmc`` moments query launches K7 and K8 once a draw
+    (``ops.k7.launches`` = ``ops.k8.launches`` = ``hmc.draws``) and the
+    update reads nothing back. With ``hmc._stream_diag_update`` replaced
+    by ``lambda sd, *a, **kw: sd``, as the benchmark's fault
+    ``diag_frozen`` does, K7 never runs, the nine accumulators stay 0
+    (R̂ reads 0, both ESS S × C) and the means and variances are the
+    unpatched query's, bit for bit."""
+    from lhvi_tpu_torch.engines import hmc
+
+    g, _ = gaussian_grid(24, 24, seed=0, evidence_frac=0.2)
+    fg = lt.compile_graph(g, dev, quad_max_n=256)
+    assert fg.quad_dia_offsets is not None
+    cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.05)
+    C, S = 256, 30
+
+    def query():
+        before = counters()
+        out = hmc.run_hmc(fg, torch.Generator(dev).manual_seed(3), cfg,
+                          n_chains=C, n_warmup=20, n_samples=S,
+                          collect="moments", stream_diag=True)
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in counters().items()}
+
+    (m, _, d), seen = query()
+    assert seen["hmc.draws"] == S and seen["ops.k2.launches"] == 20 + S
+    assert seen["ops.k7.launches"] == seen["ops.k8.launches"] == S
+    assert float((d["rhat"] - 1).abs().max()) < 0.5
+    ms = hmc._MomentStream(fg, C, 10, True, 0)
+    xs = list(_ar1_stream(dev, C, fg.n_cont, 10, 1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t, xc in enumerate(xs):
+            ms.update(t, xc, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    monkeypatch.setattr(hmc, "_stream_diag_update", lambda sd, *a, **kw: sd)
+    (mf, _, df), seen = query()
+    assert seen["ops.k7.launches"] == 0 and seen["ops.k8.launches"] == S
+    assert torch.equal(mf["mean"], m["mean"])
+    assert torch.equal(mf["var"], m["var"])
+    assert bool((df["rhat"] == 0).all())
+    for k in ("ess_bm", "ess_proxy"):
+        assert bool((df[k] == S * C).all()), k

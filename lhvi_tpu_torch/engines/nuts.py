@@ -38,8 +38,12 @@ from lhvi_tpu_torch.fg.compile import CompiledFG
 from lhvi_tpu_torch.parallel.mesh import (all_reduce, local_count,
                                           n_chain_shards, split_generator)
 from lhvi_tpu_torch.utils.debug import check_nan
+from lhvi_tpu_torch.utils.metrics import count, span
 
 _DIVERGENCE = 1000.0
+# transitions whose per-chain leaf counts ``run_nuts`` holds before it folds
+# them into its running sum (three launches a fold, none a transition)
+_LEAF_FOLD = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,7 +295,9 @@ def _nuts_sweep_batched(fg: CompiledFG, gen, xc, xd, eps, inv_mass,
                         max_depth: int, traj_kernel: bool = True,
                         uniforms=None):
     """One NUTS transition for ALL chains →
-    ``(xc', accept_stat [C], depth [C], diverged [C])``.
+    ``(xc', accept_stat [C], depth [C], diverged [C], n_leaf [C] i32)``,
+    ``n_leaf`` the leapfrog leaves each chain integrated until its tree
+    stopped (on both routes).
 
     Dense pure-quadratic targets route through the fused trajectory
     (``ops.nuts_traj.nuts_trajectory``: K3 on CUDA tensors) when
@@ -307,7 +313,7 @@ def _nuts_sweep_batched(fg: CompiledFG, gen, xc, xd, eps, inv_mass,
     q_prop, sum_acc, n_leaf, depth, div = _nuts_lockstep(
         fg, gen, xc, xd, eps, inv_mass, max_depth, uniforms=uniforms)
     accept = sum_acc / torch.clamp(n_leaf, min=1).to(torch.float32)
-    return q_prop, accept, depth, div
+    return q_prop, accept, depth, div, n_leaf
 
 
 def nuts_transition(fg: CompiledFG, cfg: NUTSConfig, state: _hmc.HMCState,
@@ -315,27 +321,31 @@ def nuts_transition(fg: CompiledFG, cfg: NUTSConfig, state: _hmc.HMCState,
     """One NUTS-within-Gibbs transition for all chains (the mode-swap move
     after the Gibbs stage where it is on; ``gate`` and ``shard`` as in
     ``hmc.hmc_transition``). Returns ``(state, (acc [C], depth [C],
-    div [C]))``."""
-    hcfg = cfg.to_hmc()
-    xd = _hmc.sweep_all(fg, hcfg, gen, state.xc, state.xd)
-    state, xd = _hmc.mode_swap_stage(fg, cfg, state, gen, gate, xd)
-    if fg.n_cont == 0:
-        C = state.xc.shape[0]
-        dev = state.xc.device
-        return state._replace(xd=xd), (
-            torch.ones((C,), device=dev),
-            torch.zeros((C,), dtype=torch.int32, device=dev),
-            torch.zeros((C,), dtype=torch.bool, device=dev))
-    eps = torch.exp(state.log_eps)
-    xc, acc, depth, div = _nuts_sweep_batched(
-        fg, gen, state.xc, xd, eps, state.inv_mass, cfg.max_depth,
-        traj_kernel=cfg.traj_kernel)
-    check_nan("nuts_transition", xc=xc, acc=acc)
-    state = state._replace(xc=xc, xd=xd)
-    if adapt:
-        state = _hmc._da_update(state, _hmc.chain_mean(acc, shard), hcfg)
-        state = _hmc._welford_update(state, xc, shard)
-    return state, (acc, depth, div)
+    div [C], n_leaf [C]))``, ``n_leaf`` the leaves each chain's tree
+    integrated. Counted as ``nuts.transitions``; timed as span
+    ``nuts.transition``."""
+    count("nuts.transitions")
+    with span("nuts.transition"):
+        hcfg = cfg.to_hmc()
+        xd = _hmc.sweep_all(fg, hcfg, gen, state.xc, state.xd)
+        state, xd = _hmc.mode_swap_stage(fg, cfg, state, gen, gate, xd)
+        if fg.n_cont == 0:
+            C = state.xc.shape[0]
+            dev = state.xc.device
+            zeros = torch.zeros((C,), dtype=torch.int32, device=dev)
+            return state._replace(xd=xd), (
+                torch.ones((C,), device=dev), zeros,
+                torch.zeros((C,), dtype=torch.bool, device=dev), zeros)
+        eps = torch.exp(state.log_eps)
+        xc, acc, depth, div, n_leaf = _nuts_sweep_batched(
+            fg, gen, state.xc, xd, eps, state.inv_mass, cfg.max_depth,
+            traj_kernel=cfg.traj_kernel)
+        check_nan("nuts_transition", xc=xc, acc=acc)
+        state = state._replace(xc=xc, xd=xd)
+        if adapt:
+            state = _hmc._da_update(state, _hmc.chain_mean(acc, shard), hcfg)
+            state = _hmc._welford_update(state, xc, shard)
+    return state, (acc, depth, div, n_leaf)
 
 
 def run_nuts(
@@ -361,74 +371,99 @@ def run_nuts(
     latents (``rhat_disc``, ``disc_diag_idx``). Each emitted sample
     reports the LAST transition of its ``thin`` block (acceptance, depth,
     divergence), as the reference's ``fori_loop`` carry does.
+
+    The call is span ``nuts.query``, which opens a new query id. The
+    leaves every chain integrated, over all transitions, are summed on the
+    device (``_LEAF_FOLD`` transitions at a time, so a transition adds no
+    launch) and added to the counter ``nuts.leaves`` once, at the end (one
+    read to the host a call, none a transition).
     """
     if collect not in ("samples", "moments"):
         raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
-    fg.require_whole("run_nuts")
-    fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
-    dev = fg.device
-    hcfg = cfg.to_hmc()
-    C = local_count(n_chains, shard)
-    gen, shared = ((gen, gen) if shard is None
-                   else split_generator(gen, shard.rank))
-    state = _hmc.init_hmc_state(fg, gen, hcfg, C)
-    gate = _hmc._gate(cfg, shared)
+    with span("nuts.query", new_query=True):
+        fg.require_whole("run_nuts")
+        fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
+        dev = fg.device
+        hcfg = cfg.to_hmc()
+        C = local_count(n_chains, shard)
+        gen, shared = ((gen, gen) if shard is None
+                       else split_generator(gen, shard.rank))
+        state = _hmc.init_hmc_state(fg, gen, hcfg, C)
+        gate = _hmc._gate(cfg, shared)
+        leaves = torch.zeros((), dtype=torch.int64, device=dev)
+        pending = []  # per-chain leaf counts not yet in ``leaves``
 
-    def transition(s, adapt):
-        return nuts_transition(fg, cfg, s, gen, adapt, gate, shard)
+        def fold_leaves():
+            nonlocal leaves
+            if pending:
+                leaves = leaves + torch.sum(torch.stack(pending))
+                pending.clear()
 
-    state = _hmc.run_warmup(fg, hcfg, state, n_warmup,
-                            lambda s, adapt: (transition(s, adapt)[0], None))
-    state = state._replace(ms_acc_sum=torch.zeros((), device=dev),
-                           ms_acc_n=torch.zeros((), device=dev))
+        def transition(s, adapt):
+            s, stats = nuts_transition(fg, cfg, s, gen, adapt, gate, shard)
+            pending.append(stats[3])
+            if len(pending) == _LEAF_FOLD:
+                fold_leaves()
+            return s, stats
 
-    def sample_step(state):
-        for _ in range(thin):
-            state, stats = transition(state, False)
-        acc, depth, div = stats
-        return state, (torch.mean(acc), torch.mean(depth.to(torch.float32)),
-                       torch.mean(div.to(torch.float32)))
+        state = _hmc.run_warmup(fg, hcfg, state, n_warmup,
+                                lambda s, adapt: (transition(s, adapt)[0],
+                                                  None))
+        state = state._replace(ms_acc_sum=torch.zeros((), device=dev),
+                               ms_acc_n=torch.zeros((), device=dev))
 
-    tot = [torch.zeros((), device=dev) for _ in range(3)]
+        def sample_step(state):
+            for _ in range(thin):
+                state, stats = transition(state, False)
+            acc, depth, div, _ = stats
+            return state, (torch.mean(acc),
+                           torch.mean(depth.to(torch.float32)),
+                           torch.mean(div.to(torch.float32)))
 
-    def add(stats):
-        for i, v in enumerate(stats):
-            tot[i] = tot[i] + v
+        tot = [torch.zeros((), device=dev) for _ in range(3)]
 
-    def base_diag(state):
-        S = max(n_samples, 1) * n_chain_shards(shard)
-        acc, depth, div = (all_reduce(v, shard) / S for v in tot)
-        return {
-            "accept_rate": acc,
-            "mean_depth": depth,
-            "divergence_rate": div,
-            "step_size": torch.exp(state.log_eps),
-            "inv_mass": state.inv_mass,
-            **_hmc._ms_diag(cfg, state, shard),
-        }
+        def add(stats):
+            for i, v in enumerate(stats):
+                tot[i] = tot[i] + v
 
-    if collect == "moments":
-        ms = _hmc._MomentStream(fg, n_chains, n_samples, stream_diag,
-                                disc_diag_cap, shard)
-        for t in range(n_samples):
-            state, stats = sample_step(state)
-            add(stats)
-            ms.update(t, state.xc, state.xd)
-        moments, stream = ms.finalize()
-        return moments, None, {**base_diag(state), **stream}
+        def base_diag(state):
+            S = max(n_samples, 1) * n_chain_shards(shard)
+            acc, depth, div = (all_reduce(v, shard) / S for v in tot)
+            return {
+                "accept_rate": acc,
+                "mean_depth": depth,
+                "divergence_rate": div,
+                "step_size": torch.exp(state.log_eps),
+                "inv_mass": state.inv_mass,
+                **_hmc._ms_diag(cfg, state, shard),
+            }
 
-    s_xc, s_xd = [], []
-    for _ in range(n_samples):
-        state, stats = sample_step(state)
-        add(stats)
-        s_xc.append(state.xc)
-        s_xd.append(state.xd)
-    diag = base_diag(state)
-    if not s_xc:
-        return (torch.zeros((0, C, fg.n_cont), device=dev),
-                torch.zeros((0, C, fg.n_disc), dtype=torch.int64,
-                            device=dev), diag)
-    return torch.stack(s_xc), torch.stack(s_xd), diag
+        if collect == "moments":
+            ms = _hmc._MomentStream(fg, n_chains, n_samples, stream_diag,
+                                    disc_diag_cap, shard)
+            for t in range(n_samples):
+                state, stats = sample_step(state)
+                add(stats)
+                ms.update(t, state.xc, state.xd)
+            moments, stream = ms.finalize()
+            out = moments, None, {**base_diag(state), **stream}
+        else:
+            s_xc, s_xd = [], []
+            for _ in range(n_samples):
+                state, stats = sample_step(state)
+                add(stats)
+                s_xc.append(state.xc)
+                s_xd.append(state.xd)
+            diag = base_diag(state)
+            if s_xc:
+                out = torch.stack(s_xc), torch.stack(s_xd), diag
+            else:
+                out = (torch.zeros((0, C, fg.n_cont), device=dev),
+                       torch.zeros((0, C, fg.n_disc), dtype=torch.int64,
+                                   device=dev), diag)
+        fold_leaves()
+        count("nuts.leaves", int(leaves))
+        return out
 
 
 def sample(fg: CompiledFG, gen, **kw):

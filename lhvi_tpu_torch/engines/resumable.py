@@ -220,8 +220,8 @@ def sample_checkpointed(
         hcfg = cfg.to_hmc()
 
         def trans(state, g, gate, adapt):
-            state, (acc, _, _) = _nuts.nuts_transition(fg, cfg, state, g,
-                                                       adapt, gate, shard)
+            state, (acc, *_) = _nuts.nuts_transition(fg, cfg, state, g,
+                                                     adapt, gate, shard)
             return state, acc
 
     else:

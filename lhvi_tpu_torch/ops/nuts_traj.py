@@ -194,7 +194,9 @@ def nuts_trajectory(fg, gen, xc, eps, inv_mass, max_depth: int,
                     uniforms=None):
     """One fused NUTS transition for all chains on a dense pure-quadratic
     target. Returns ``(q_prop [C, n], accept_stat [C], depth [C] i32,
-    diverged [C] bool)``; nothing is read back to the host.
+    diverged [C] bool, n_leaf [C] i32)``, ``n_leaf`` the leaves each
+    chain integrated until its tree stopped; nothing is read back to the
+    host.
 
     Momenta ``p0 = std·N(0, 1)`` are the first draw from ``gen``, as in
     the reference. CUDA tensors then go through K3
@@ -217,7 +219,7 @@ def nuts_trajectory(fg, gen, xc, eps, inv_mass, max_depth: int,
             xc.contiguous(), p0, fg.quad_J, fg.quad_h, inv_mass.contiguous(),
             eps, max_depth, seed, offset, uniforms)
         acc = sum_acc / torch.clamp(n_leaf, min=1).to(torch.float32)
-        return qp, acc, depth, div
+        return qp, acc, depth, div, n_leaf
     if xc.device.type != "cpu":
         raise NotImplementedError(f"nuts_trajectory: no route for {xc.device}")
     from lhvi_tpu_torch.engines.nuts import _nuts_sweep_batched

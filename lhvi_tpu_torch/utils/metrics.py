@@ -8,8 +8,9 @@ Perfetto or ``chrome://tracing`` opens.
 Spans and counters, the program's view of its own layers:
 
 - ``count(name, n)`` adds to a named integer counter, always (the kernel
-  launches ``ops.k1.launches`` … ``ops.k8.launches``, the sampler's
-  ``hmc.transitions`` and ``hmc.draws``); ``counters()`` copies them.
+  launches ``ops.k1.launches`` … ``ops.k8.launches``, the samplers'
+  ``hmc.transitions``, ``hmc.draws``, ``nuts.transitions`` and
+  ``nuts.leaves``); ``counters()`` copies them.
 - ``span(name)`` times a block on the host clock (``perf_counter_ns``)
   while tracing is on (``enable_tracing`` or the ``tracing()`` context,
   the module-flag pattern of ``utils/debug.py``). A record holds the

@@ -424,6 +424,59 @@ def test_nuts_traj_kernel_is_bitwise_reproducible(dev, n, D):
         assert int(a[3].min()) < int(a[3].max())
 
 
+def test_nuts_leaves_k3_equal_the_lockstep_count(dev):
+    """The leaves K3 reports a chain integrated are the lockstep loop's for
+    the same tree (same p0, same uniforms table): equal on every chain whose
+    tree agrees, so ``nuts.leaves`` reads the same on either route; and
+    ``run_nuts`` adds the per-chain leaves of every transition to the
+    counter once."""
+    from lhvi_tpu_torch.engines import nuts
+
+    g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
+    fg = lt.compile_graph(g, dev)
+    C, n, D = 4096, fg.n_cont, 4
+    gen = torch.Generator(dev).manual_seed(5)
+    mode = torch.linalg.solve(fg.quad_J.double(), fg.quad_h.double()).float()
+    xc = mode[None] + 0.5 * torch.randn((C, n), generator=gen, device=dev)
+    im = torch.ones(n, device=dev)
+    U = torch.rand((3, 1 << D, C), generator=gen, device=dev)
+    out = {}
+    for route in (True, False):
+        out[route] = nuts._nuts_sweep_batched(
+            fg, torch.Generator(dev).manual_seed(9), xc, None,
+            torch.tensor(0.12, device=dev), im, D, traj_kernel=route,
+            uniforms=U)
+    torch.cuda.synchronize()
+    k3, plain = out[True], out[False]
+    same_tree = ((k3[0] - plain[0]).abs() <= 1e-4 * torch.clamp(
+        plain[0].abs(), min=1.0)).all(dim=1) & (k3[2] == plain[2])
+    assert float(same_tree.float().mean()) >= 0.97
+    assert torch.equal(k3[4][same_tree], plain[4][same_tree])
+    assert int(k3[4].max()) <= (1 << D) - 1 and int(k3[4].min()) >= 1
+
+    seen = []
+    real = nuts._nuts_sweep_batched
+
+    def spy(*a, **k):
+        r = real(*a, **k)
+        seen.append(int(r[4].sum()))
+        return r
+
+    nuts._nuts_sweep_batched = spy
+    try:
+        before = counters()
+        nuts.run_nuts(fg, torch.Generator(dev).manual_seed(1),
+                      nuts.NUTSConfig(max_depth=D, init_step_size=0.12),
+                      n_chains=512, n_warmup=5, n_samples=6,
+                      collect="moments")
+        after = counters()
+    finally:
+        nuts._nuts_sweep_batched = real
+    assert after["nuts.transitions"] - before["nuts.transitions"] == 11
+    assert after["ops.k3.launches"] - before["ops.k3.launches"] == 11
+    assert after["nuts.leaves"] - before["nuts.leaves"] == sum(seen) > 0
+
+
 def test_nuts_traj_kernel_in_kernel_uniforms(dev):
     """Philox uniforms through the wrapper: the same generator state gives
     the same bits, the next call on the generator differs; the accept
@@ -802,8 +855,8 @@ def test_nuts_within_gibbs_and_tempered_smc_run_on_the_card(dev):
     gen = torch.Generator(dev).manual_seed(0)
     state = hmc.init_hmc_state(fg, gen, cfg.to_hmc(), 64)
     for _ in range(2):
-        state, (acc, depth, div) = nuts.nuts_transition(fg, cfg, state, gen,
-                                                        True)
+        state, (acc, depth, div, _) = nuts.nuts_transition(fg, cfg, state,
+                                                           gen, True)
     xc, xd, _, log_z, _ = smc.run_smc(
         fg, gen, smc.SMCConfig(n_particles=256, n_temps=3, n_moves=1))
     for a, b in ((state.xc, state.xd), (xc, xd)):

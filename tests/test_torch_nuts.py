@@ -207,7 +207,7 @@ def test_one_transition_statistics_match_reference():
         rfg, jax.random.PRNGKey(0), jnp.asarray(xc),
         jnp.zeros((C, 0), jnp.int32), jnp.float32(eps), jnp.asarray(im), D,
         use_pallas=False)
-    _, acc, depth, div = nuts._nuts_sweep_batched(
+    _, acc, depth, div, _ = nuts._nuts_sweep_batched(
         fg, torch.Generator().manual_seed(0), torch.from_numpy(xc), None,
         torch.tensor(eps), torch.from_numpy(im), D)
     dr, ar = float(np.mean(np.asarray(depth_r))), float(np.mean(acc_r))

@@ -10,17 +10,19 @@
 // p unchanged and lp0 twice.
 //
 // What bounds it on the H100. At the 128x128 grid (n_emb = 16,384 lanes,
-// K = 4 offsets, C = 1,024 chains, 8 steps) the call must move x and p in
-// and x1 and p1 out, 4 x 54 MB of latent rows, against 2(K+1) flops per
-// lane per matvec over 9 matvecs, 1.5 GFLOP (~23 us at 67 TFLOP/s f32):
-// the bound is memory traffic.
+// K = 4 offsets, C = 1,024 chains, 6 steps) the call must move x and p in
+// and x1 and p1 out, 4 x 62 MB of latent rows, against 2(K+1) flops per
+// lane per gradient over 7 gradients (~20 us at 67 TFLOP/s f32): the bound
+// is memory traffic. What binds the kernel is the step loop's
+// shared-memory reads of every lane's position and four neighbours and one
+// cluster barrier a step.
 //
 // Design: K2 (dia_proposal.cu) without the momentum draw and the accept;
 // the trajectory body is the one K2 runs (dia_traj.cuh): clusters that
 // split the embedded row, lane constants staged once per launch, positions
-// double-buffered in shared memory, momenta in registers, one cluster
-// barrier per step. The endpoint sums are accumulated in double and
-// reduced in a fixed order.
+// double-buffered in shared memory as conflict-free planes of float4,
+// momenta in registers, one cluster barrier per step. The endpoint sums
+// are accumulated in double and reduced in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

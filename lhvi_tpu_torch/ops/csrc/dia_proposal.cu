@@ -8,22 +8,27 @@
 // sum_k w_k * x[i + o_k]; lp = 1/2 sum x(h + g) at both ends; kinetic
 // energies 1/2 sum im p^2; log_acc = min(0, dlp + dKE).
 //
-// What bounds it on the H100. At the bench shape (128x128 grid, n_emb =
-// 16,384 lanes, K = 4, C = 1,024 chains, 8 steps) the arithmetic is ~(K+1)
-// FMAs per lane per matvec and 9 matvecs, ~1.5 GFLOP per call, against
-// 134 MB of compulsory traffic (x in, x1 out): the bound is memory
-// traffic, 0.04 ms. PR 4's kernel (one 1,024-thread block per chain) read
-// the lane constants from L2 for every chain and matvec (~4 GB a call) and
-// paid two block barriers a step at one block per SM.
+// What bounds it on the H100. At the benchmark's shape (128x128 grid,
+// n_emb = 16,384 lanes, K = 4, 6 steps) the arithmetic is 2(K+1) flops per
+// lane and chain per gradient over 7 gradients, against 2 x 4 x C x n bytes
+// of latent rows in and out: the bound is memory traffic, 0.038 ms at
+// 1,024 chains and 0.611 ms at 16,384 (portbench/roofline.py). The kernel
+// runs some 9x above it (PERF.md, the port's kernels): what binds is
+// inside the SMs, the step loop's shared-memory reads of every lane's
+// position and four neighbours for every chain, one cluster barrier a
+// step, and the momentum draw (Philox4x32-10 and Box-Muller, about 200
+// instructions for four normals). A block per chain would read the lane
+// constants from L2 for every chain and matvec.
 //
 // Design: the trajectory body in dia_traj.cuh. A cluster of blocks splits
 // the embedded row and integrates a group of chains at once; each block
 // stages its slice's lane constants once per launch, holds positions
-// double-buffered in shared memory and momenta in registers, and reads a
-// neighbour in another slice through distributed shared memory: one
-// cluster barrier per step. The embedding is folded in: rows and the
-// latent diag, h and inv_mass are read through inv. The four per-chain
-// energy sums are one double per chain and end, reduced in a fixed order.
+// double-buffered in shared memory as planes of float4 (no bank conflict)
+// and momenta in registers, and reads a neighbour in another slice through
+// distributed shared memory: one cluster barrier per step, released by one
+// thread's fence. The embedding is folded in: rows and the latent diag, h
+// and inv_mass are read through inv. The four per-chain energy sums are
+// one double per chain and end, reduced in a fixed order.
 //
 // Momenta: counter-based Philox4x32-10 keyed by a 64-bit seed, with
 // counter (lane quad, chain, offset): the stream for a (seed, offset,

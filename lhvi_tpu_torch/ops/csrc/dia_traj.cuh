@@ -7,6 +7,17 @@
 // (ops/dia.py::ell_to_dia asserts it), as in the reference's circular roll.
 // lp = 1/2 sum x(h + g) with g = h - J x, summed in double.
 //
+// What binds (the 128x128 grid, 16,384 lanes, 4 offsets, 6 steps). Each
+// step reads every lane's own position and its four neighbours for every
+// chain of a group from shared memory, then one cluster barrier; those
+// reads are the step's cost. Kept as [lane][CB], a warp's 16-byte loads
+// fell 32 bytes apart, a 2-way bank conflict on every load; as planes they
+// are conflict-free. Holding the positions in registers instead (a
+// thread's tile of rows, row neighbours in its own registers, column
+// neighbours by warp shuffles, only the halo in shared memory) took more
+// instructions and registers than the loads it saved, and measured slower
+// on the H100 (PERF.md, the port's kernels).
+//
 // Layout (the geometry comes from ops/dia.py::dia_launch, and
 // check_launch() holds the launcher to it):
 //   - A thread block cluster of S blocks (S in 1, 2, 4, 8) splits the
@@ -20,10 +31,13 @@
 //     chain groups, so the constants are read from device memory once per
 //     block and from shared memory once per lane and step for all CB
 //     chains.
-//   - Positions live in shared memory as [lane][CB] (one vector load gives
-//     a lane for every chain), double-buffered: step s reads x_s and writes
-//     x_{s+1}, so a step costs ONE cluster barrier. A neighbour in another
-//     block's slice is read through distributed shared memory.
+//   - Positions live in shared memory as CB / 4 planes of float4,
+//     [CB / 4][slice] (consecutive lanes 16 bytes apart: no bank
+//     conflict), double-buffered: step s reads x_s and writes x_{s+1}, so
+//     a step costs ONE cluster barrier: a block barrier, one thread's
+//     cluster-scope fence (cumulative over the block's writes) and a
+//     relaxed cluster arrive. A neighbour in another block's slice is read
+//     through distributed shared memory.
 //   - Momenta live in registers: lane i of a slice is owned by thread
 //     i mod T for the whole trajectory, so no other thread touches its
 //     momentum. A thread holds at most kRegLanes lane-chains; blocks have
@@ -32,6 +46,9 @@
 //   - Chain rows are read and written in latent coordinates: lane i reads
 //     x[c, inv[i]] (0 at a gap lane) and writes x1 back to the same place;
 //     gap lanes have diag = h = im = 0 and zero weights, so they stay 0.
+// Momenta (K2): Philox4x32-10 with counter (lane quad, chain, offset), staged
+// as std * z in the second buffer until the first drift, so a generator
+// state gives the same momenta bit for bit whatever the layout.
 // Per-chain sums: each thread adds its lanes' terms per chain, each warp
 // reduces them with a fixed shuffle pattern (warp_sums) into shared
 // memory, the block adds its warps in warp order, and rank 0 adds the S
@@ -147,6 +164,57 @@ __device__ __forceinline__ void st(float* p, const float (&v)[CB]) {
   }
 }
 
+// A lane's values for all CB chains in a position buffer: CB / 4 planes of
+// float4, [CB / 4][slice] (below 4 chains, one access of ld / st).
+template <int CB>
+__device__ __forceinline__ void ld_lane(const float* buf, int slice, int i,
+                                        float (&v)[CB]) {
+  if constexpr (CB % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < CB; c += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(
+          buf + ((size_t)(c / 4) * slice + i) * 4);
+      v[c] = t.x; v[c + 1] = t.y; v[c + 2] = t.z; v[c + 3] = t.w;
+    }
+  } else {
+    ld<CB>(buf + (size_t)i * CB, v);
+  }
+}
+
+template <int CB>
+__device__ __forceinline__ void st_lane(float* buf, int slice, int i,
+                                        const float (&v)[CB]) {
+  if constexpr (CB % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < CB; c += 4)
+      *reinterpret_cast<float4*>(buf + ((size_t)(c / 4) * slice + i) * 4) =
+          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+  } else {
+    st<CB>(buf + (size_t)i * CB, v);
+  }
+}
+
+// Where chain c of lane i lies in a position buffer.
+template <int CB>
+__device__ __forceinline__ size_t plane_at(int slice, int i, int c) {
+  if constexpr (CB % 4 == 0)
+    return ((size_t)(c / 4) * slice + i) * 4 + c % 4;
+  else
+    return (size_t)i * CB + c;
+}
+
+// The step's cluster barrier: the block's writes gathered by a block
+// barrier and released to the cluster by one thread's fence (cumulative),
+// then a relaxed arrive and an acquiring wait. The same ordering as
+// cluster_group::sync(), whose release fences every thread.
+__device__ __forceinline__ void cluster_barrier() {
+  __syncthreads();
+  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  asm volatile(
+      "barrier.cluster.arrive.relaxed.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // The warp's sums of v[c] for all CB chains in 4 + 2 + 1 + 2 (CB = 8)
 // double shuffles instead of CB butterflies of 5: at each of the first
 // log2(CB) levels a lane keeps half of its values and adds its partner's
@@ -200,7 +268,7 @@ __device__ __forceinline__ void run(const Args& a) {
   float* cim = ch + slice;
   int* cinv = reinterpret_cast<int*>(cim + slice);   // latent index or -1
   float* cw = reinterpret_cast<float*>(cinv + slice);  // [K][slice]
-  float* buf0 = cw + (size_t)K * slice;                // [slice][CB]
+  float* buf0 = cw + (size_t)K * slice;                // [CB / 4][slice]
   float* buf1 = buf0 + (size_t)slice * CB;
 
   for (int i = tid; i < own; i += T) {
@@ -220,16 +288,16 @@ __device__ __forceinline__ void run(const Args& a) {
   auto fetch = [&](float* buf, int j, float (&v)[CB]) {
     const int jl = j - lo;
     if ((unsigned)jl < (unsigned)slice) {
-      ld<CB>(buf + (size_t)jl * CB, v);
+      ld_lane<CB>(buf, slice, jl, v);
     } else {
       const int r = j / slice;
       const float* rb = cl.map_shared_rank(buf, (unsigned)r);
-      ld<CB>(rb + (size_t)(j - r * slice) * CB, v);
+      ld_lane<CB>(rb, slice, j - r * slice, v);
     }
   };
   // x of lane i (local) and g = h - J x, for every chain
   auto grad = [&](float* buf, int i, float (&x)[CB], float (&g)[CB]) {
-    ld<CB>(buf + (size_t)i * CB, x);
+    ld_lane<CB>(buf, slice, i, x);
     const float d = cdiag[i];
 #pragma unroll
     for (int c = 0; c < CB; ++c) g[c] = d * x[c];
@@ -264,7 +332,7 @@ __device__ __forceinline__ void run(const Args& a) {
         for (int c = 0; c < CB; ++c)
           xv[c] = (v >= 0 && c0 + c < a.C) ? a.x[(size_t)(c0 + c) * a.n + v]
                                            : 0.f;
-        st<CB>(buf0 + (size_t)i * CB, xv);
+        st_lane<CB>(buf0, slice, i, xv);
       }
     }
     float m[ML][CB];
@@ -297,7 +365,7 @@ __device__ __forceinline__ void run(const Args& a) {
             const float imv = cim[i];
             const float sd = imv > 0.f ? sqrtf(1.0f / fmaxf(imv, 1e-12f))
                                        : 0.f;
-            buf1[(size_t)i * CB + c] = sd * z[j];
+            buf1[plane_at<CB>(slice, i, c)] = sd * z[j];
           }
         }
       }
@@ -306,14 +374,14 @@ __device__ __forceinline__ void run(const Args& a) {
       for (int l = 0; l < ML; ++l) {
         const int i = tid + l * T;
         if (l < lpt && i < own) {
-          ld<CB>(buf1 + (size_t)i * CB, m[l]);
+          ld_lane<CB>(buf1, slice, i, m[l]);
         } else {
 #pragma unroll
           for (int c = 0; c < CB; ++c) m[l][c] = 0.f;
         }
       }
     }
-    cl.sync();  // the cluster's x0 in place; buf1 read
+    cluster_barrier();  // the cluster's x0 in place; buf1 read
 
     // start: lp0 (K2: minus the kinetic energy), the first half-kick and
     // drift x1 -> buf1; each thread sums its lanes' terms per chain
@@ -336,11 +404,11 @@ __device__ __forceinline__ void run(const Args& a) {
             x[c] = x[c] + eps * imv * m[l][c];
           }
         }
-        if (a.n_steps > 0) st<CB>(buf1 + (size_t)i * CB, x);
+        if (a.n_steps > 0) st_lane<CB>(buf1, slice, i, x);
       }
     }
     warp_sums<CB>(acc, lane, red + warp * CB);
-    if (a.n_steps > 0) cl.sync();
+    if (a.n_steps > 0) cluster_barrier();
     for (int s = 1; s < a.n_steps; ++s) {
       float* cur = (s & 1) ? buf1 : buf0;
       float* nxt = (s & 1) ? buf0 : buf1;
@@ -356,10 +424,10 @@ __device__ __forceinline__ void run(const Args& a) {
             m[l][c] += eps * g[c];
             x[c] = x[c] + eps * imv * m[l][c];
           }
-          st<CB>(nxt + (size_t)i * CB, x);
+          st_lane<CB>(nxt, slice, i, x);
         }
       }
-      cl.sync();
+      cluster_barrier();
     }
     // end: lp1 (K2: minus the kinetic energy), the last half-kick; x1 and
     // (K6) p1 back to latent rows. n_steps == 0 repeats the start exactly.
@@ -396,7 +464,7 @@ __device__ __forceinline__ void run(const Args& a) {
       for (int w = 0; w < W; ++w) s += red[(pass * W + w) * CB + c];
       part[pass * CB + c] = s;
     }
-    cl.sync();  // every block's partials in place; peers done reading x
+    cluster_barrier();  // every block's partials in place; peers done reading x
     if (rank == 0) {
       // the peers' partials in one round of remote loads, then summed in
       // rank order

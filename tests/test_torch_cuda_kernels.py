@@ -91,41 +91,56 @@ def grid32(dev):
     return fg
 
 
-def _banded(dev, n, rows=128):
-    """A banded target on n lanes with no embedding (the 4-neighbour
-    stencil of a grid ``rows`` wide, diagonally dominant): diag, offsets,
-    wdia, h. Every weight whose neighbour falls off the row is 0, as
-    ``ell_to_dia`` guarantees."""
-    offs = (-rows, -1, 1, rows)
+def _banded(dev, n, rows=128, offs=None):
+    """A banded target on n lanes with no embedding (by default the
+    4-neighbour stencil of a grid ``rows`` wide, diagonally dominant):
+    diag, offsets, wdia, h. Every weight whose neighbour falls off the row
+    is 0, as ``ell_to_dia`` guarantees."""
+    offs = (-rows, -1, 1, rows) if offs is None else offs
     i = torch.arange(n, device=dev)
     wdia = torch.stack([torch.where((i + o >= 0) & (i + o < n), -1.0, 0.0)
                         for o in offs]).float().contiguous()
     g = torch.Generator(dev).manual_seed(n)
     h = torch.randn((n,), generator=g, device=dev)
-    return torch.full((n,), 4.5, device=dev), offs, wdia, h
+    return torch.full((n,), 0.5 + len(offs), device=dev), offs, wdia, h
+
+
+# K2's and K6's bands beyond the grids: offsets with no row structure and a
+# chain, each on a lane count that is no multiple of the block's lanes
+_BANDS = {"norows": (4001, (-50, -3, 3, 50)), "chain": (3001, (-1, 1))}
 
 
 def _dia_case(dev, grid32, dia_grids, case):
     """(diag, offsets, wdia, h, pos, inv, C) of a K2/K6 edge case: many
     chains per block (16×16 grid, 37 chains), a chain count that is not a
-    multiple of the 8 chains per block (128×128 grid, 1,021 chains), the
-    widest row (DIA_MAX_EMB lanes, 5 chains against 4 per block)."""
+    multiple of the 8 chains per block (128×128 grid, 1,021 chains; 3
+    chains, fewer than one group), the widest row (DIA_MAX_EMB lanes, 5
+    chains against 4 per block), a band with no row structure and a
+    chain (``_BANDS``, 13 and 19 chains)."""
     if case == "max":
         return (*_banded(dev, dia.DIA_MAX_EMB), None, None, 5)
+    if case in _BANDS:
+        n, offs = _BANDS[case]
+        return (*_banded(dev, n, offs=offs), None, None,
+                13 if case == "norows" else 19)
     fg, C = {"grid32": (grid32, 7), "grid16": (dia_grids[16], 37),
-             "grid128": (dia_grids[128], 1021)}[case]
+             "grid128": (dia_grids[128], 1021),
+             "grid128-3": (dia_grids[128], 3)}[case]
     return (fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h,
             fg.quad_dia_pos, fg.quad_dia_inv, C)
 
 
 @pytest.mark.parametrize("n_steps,case", [
     pytest.param(s, c, id=str(s) if c == "grid32" else f"{s}-{c}")
-    for c in ("grid32", "grid16", "grid128", "max") for s in (0, 1, 5)])
+    for c in ("grid32", "grid16", "grid128", "grid128-3", "max", "norows",
+              "chain")
+    for s in (0, 1, 5)])
 def test_dia_proposal_kernel_given_p0_matches_plain(dev, grid32, dia_grids,
                                                     case, n_steps):
     """Exact mode (p0 from memory) through the wrapper, against the plain
     route on the same tensors moved to the CPU, on the edge shapes of the
-    cluster layout. Tolerances: x1 1e-5·max(1,|plain|); log_acc
+    cluster layout, on a band with no row structure (offsets ±3 and ±50)
+    and on a chain (±1). Tolerances: x1 1e-5·max(1,|plain|); log_acc
     1e-5·(|lp0| + ke0)."""
     diag, offs, wdia, h, pos, inv, C = _dia_case(dev, grid32, dia_grids, case)
     n = diag.shape[0]
@@ -241,20 +256,26 @@ def dia_grids(dev):
 
 
 @pytest.mark.parametrize("rows,C", [(16, 37), (128, 19), (128, 1021),
-                                    ("max", 5)])
+                                    ("max", 5), ("norows", 13),
+                                    ("chain", 19)])
 @pytest.mark.parametrize("n_steps", [0, 1, 6])
 def test_dia_leapfrog_kernel_matches_plain(dev, dia_grids, rows, C, n_steps):
     """K6 through ``dia_quad_leapfrog`` on latent rows with ``pos``, one
     launch per call, against the plain version on the same tensors in f32
     and f64: on the 16×16 grid (8 chains in one block, 37 chains), the
     128×128 grid (clusters of 8 blocks; 19 and 1,021 chains, neither a
-    multiple of 8) and a band of DIA_MAX_EMB lanes with no embedding (4
-    chains per cluster, 5 chains). Tolerances: x1, p1 within
+    multiple of 8), a band of DIA_MAX_EMB lanes with no embedding (4
+    chains per cluster, 5 chains), a band with no row structure (offsets
+    ±3 and ±50) and a chain (±1). Tolerances: x1, p1 within
     1e-4·max(1,|plain|) (f32 trajectory, FMA contraction); lp0, lp1 within
     1e-5·max(1,|plain|) of plain f32 and 2e-6 of plain f64 (the kernel
     sums in double). Zero steps return x and p bitwise and lp0 twice."""
     if rows == "max":
         diag, offs, wdia, h = _banded(dev, dia.DIA_MAX_EMB)
+        pos = None
+    elif rows in _BANDS:
+        n, offs = _BANDS[rows]
+        diag, offs, wdia, h = _banded(dev, n, offs=offs)
         pos = None
     else:
         fg = dia_grids[rows]
@@ -326,6 +347,73 @@ def test_dia_kernels_alternate_geometries(dev, dia_grids):
         if rows in seen:
             assert all(torch.equal(a, b) for a, b in zip(out, seen[rows]))
         seen[rows] = out
+
+
+def _philox_normals(seed: int, offset: int, quads, chains):
+    """The momentum stream K2 draws, on the host: Philox4x32-10 keyed by
+    the 64-bit ``seed`` with counter (lane quad, chain, ``offset``), four
+    words to two Box-Muller pairs from uniforms in (0, 1], in float64.
+    Returns z [len(chains), 4 * len(quads)] for lanes 4q .. 4q + 3."""
+    M0, M1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
+    W0, W1 = np.uint32(0x9E3779B9), np.uint32(0xBB67AE85)
+    q, c = np.meshgrid(np.asarray(quads, np.uint32),
+                       np.asarray(chains, np.uint32))
+    x0, x1 = q.astype(np.uint32), c.astype(np.uint32)
+    x2 = np.full_like(x0, offset & 0xFFFFFFFF)
+    x3 = np.full_like(x0, (offset >> 32) & 0xFFFFFFFF)
+    k0, k1 = np.uint32(seed & 0xFFFFFFFF), np.uint32(seed >> 32)
+    with np.errstate(over="ignore"):
+        for _ in range(10):
+            p0 = M0 * x0.astype(np.uint64)
+            p1 = M1 * x2.astype(np.uint64)
+            hi0, lo0 = (p0 >> 32).astype(np.uint32), p0.astype(np.uint32)
+            hi1, lo1 = (p1 >> 32).astype(np.uint32), p1.astype(np.uint32)
+            x0, x1, x2, x3 = hi1 ^ x1 ^ k0, lo1, hi0 ^ x3 ^ k1, lo0
+            k0, k1 = k0 + W0, k1 + W1
+
+    def uni(b):
+        return ((b >> 8).astype(np.float64) + 1.0) / 16777216.0
+
+    def bm(a, b):
+        r = np.sqrt(-2.0 * np.log(uni(a)))
+        return r * np.cos(2 * np.pi * uni(b)), r * np.sin(2 * np.pi * uni(b))
+
+    z = np.stack([*bm(x0, x1), *bm(x2, x3)], axis=-1)  # [chains, quads, 4]
+    return z.reshape(z.shape[0], -1)
+
+
+@pytest.mark.parametrize("rows", [128, 32])
+def test_dia_proposal_momentum_stream_is_pinned(dev, dia_grids, grid32, rows):
+    """K2's in-kernel momenta are the Philox stream keyed by the
+    generator's seed (``_KEY_TAG`` folded in) with counter (lane quad,
+    chain, offset): one step from x = 0 gives x1 = ε·im·(p0 + ½ε·h) with
+    p0 = z / √im, z from a numpy twin of Philox4x32-10 and Box–Muller, to
+    float rounding (1e-5 of ε·im·(|p0| + 1 / √im)), on the 128×128 grid
+    (clusters of 8) and the 32×32 grid (one block); 77 chains, so the last
+    group is ragged."""
+    fg = dia_grids[128] if rows == 128 else grid32
+    assert dia.dia_launch(fg.quad_dia_w.shape[1],
+                          len(fg.quad_dia_offsets)).cluster == (
+                              8 if rows == 128 else 1)
+    n, C, eps = fg.n_cont, 77, 0.01
+    g = torch.Generator(dev).manual_seed(rows)
+    im = 0.5 + torch.rand((n,), generator=g, device=dev)
+    gen = torch.Generator(dev).manual_seed(20260 + rows)
+    seed = gen.initial_seed() ^ dia._KEY_TAG
+    offset = gen.get_offset()
+    x1, _ = dia.dia_hmc_proposal(
+        gen, torch.zeros((C, n), device=dev), fg.quad_diag,
+        fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h, im, eps, 1,
+        pos=fg.quad_dia_pos, inv=fg.quad_dia_inv)
+    pos = fg.quad_dia_pos.cpu().numpy()
+    z = _philox_normals(seed, offset, np.arange(fg.quad_dia_w.shape[1] // 4),
+                        np.arange(C))[:, pos]
+    imd = im.double().cpu().numpy()
+    sd = 1.0 / np.sqrt(imd)
+    want = eps * imd * (sd * z + 0.5 * eps * fg.quad_h.double().cpu().numpy())
+    got = x1.double().cpu().numpy()
+    assert np.all(np.abs(got - want)
+                  <= 1e-5 * eps * imd * (np.abs(sd * z) + sd))
 
 
 # ---- K3: the NUTS trajectory ----------------------------------------------

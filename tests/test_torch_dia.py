@@ -331,6 +331,27 @@ def test_dia_launch_chains_per_block(n_emb, K):
     assert (geo.cluster, geo.chains) == want
 
 
+@pytest.mark.parametrize("n_emb,K", [(4001, 4), (3001, 2), (16387, 4)])
+def test_dia_launch_covers_ragged_bands(n_emb, K):
+    """The geometry of the card tests' bands without rows (4,001 lanes,
+    offsets ±3 and ±50; a chain of 3,001) and of a lane count past a
+    multiple of the grid's: the cluster's slices of whole lane quads cover
+    the row, the last slice not empty; a thread holds at most 32
+    lane-chain momenta, in at most 512 threads; the shared bytes, two
+    [chains / 4][slice] position planes and the lane constants, are the
+    kernel's reckoning within 227 KB. Three lanes past the grid's 16,384
+    a block's 2,052 lanes would need 513 threads at 8 chains, so 4."""
+    geo = dia.dia_launch(n_emb, K)
+    assert geo.slice % 4 == 0
+    assert geo.cluster * geo.slice >= n_emb > (geo.cluster - 1) * geo.slice
+    assert -(-geo.slice // geo.threads) * geo.chains <= dia._REG_LANES
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 512
+    assert geo.smem == dia._dia_smem(K, geo.chains, geo.slice, geo.threads)
+    assert geo.smem <= dia.DIA_SMEM_LIMIT
+    assert (geo.cluster, geo.chains) == {4001: (2, 8), 3001: (2, 8),
+                                         16387: (8, 4)}[n_emb]
+
+
 def test_dia_max_emb_is_kept():
     """DIA_MAX_EMB stays 28,672 lanes; one lane more raises."""
     assert dia.DIA_MAX_EMB == 28672

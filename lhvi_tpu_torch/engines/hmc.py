@@ -51,6 +51,7 @@ import torch
 from lhvi_tpu_torch.fg.compile import _NEG_BIG, CompiledFG
 from lhvi_tpu_torch.ops import moments as _moments
 from lhvi_tpu_torch.ops.dia import _kinetic
+from lhvi_tpu_torch.ops.nuts_traj import momentum_std
 from lhvi_tpu_torch.parallel.mesh import (all_reduce, assemble_rows,
                                           local_count, n_chain_shards,
                                           split_generator)
@@ -309,12 +310,17 @@ def _quad_proposal(fg: CompiledFG, cfg: HMCConfig, xc, p0, eps, inv_mass):
                                cfg.n_leapfrog)
         lp0 = fg.quad_log_prob_batched(xc)
         lp1 = fg.quad_log_prob_batched(x1)
+    return x1, _log_accept(lp0, lp1, p0, p1, inv_mass)
+
+
+def _log_accept(lp0, lp1, p0, p1, inv_mass):
+    """The Metropolis log-accept ``min(0, H0 − H1)`` of a trajectory from
+    its end log-probs and momenta, non-finite values mapped to −inf."""
     h0 = -lp0 + _kinetic(inv_mass, p0)
     h1 = -lp1 + _kinetic(inv_mass, p1)
     log_acc = torch.clamp(h0 - h1, max=0.0)
-    log_acc = torch.where(torch.isfinite(log_acc), log_acc,
-                          torch.full((), -math.inf, device=xc.device))
-    return x1, log_acc
+    return torch.where(torch.isfinite(log_acc), log_acc,
+                       torch.full((), -math.inf, device=lp0.device))
 
 
 def _mh_accept(xc, x1, log_acc, u):
@@ -337,23 +343,7 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd, eps,
     if fg.n_cont == 0:
         # nothing moves; the reference's empty trajectory accepts
         return xc, torch.ones((C,), device=xc.device)
-    if not fg.cont_pure_quad:
-        from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
-
-        std = torch.sqrt(1.0 / torch.clamp(inv_mass, min=1e-12))
-        p0 = std[None, :] * torch.randn(xc.shape, generator=gen,
-                                        device=xc.device)
-        x1, p1, lp0, lp1 = logpot_leapfrog(
-            fg, xc, p0, xd, inv_mass, eps, cfg.n_leapfrog,
-            plan="auto" if cfg.fused_logpot else None)
-        h0 = -lp0 + _kinetic(inv_mass, p0)
-        h1 = -lp1 + _kinetic(inv_mass, p1)
-        log_acc = torch.clamp(h0 - h1, max=0.0)
-        log_acc = torch.where(torch.isfinite(log_acc), log_acc,
-                              torch.full((), -math.inf, device=xc.device))
-        u = torch.rand((C,), generator=gen, device=xc.device)
-        return _mh_accept(xc, x1, log_acc, u)
-    if _use_dia(fg, cfg):
+    if fg.cont_pure_quad and _use_dia(fg, cfg):
         from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
 
         x1, log_acc = dia_hmc_proposal(
@@ -362,10 +352,17 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd, eps,
             pos=fg.quad_dia_pos, inv=fg.quad_dia_inv,
         )
     else:
-        std = torch.sqrt(1.0 / torch.clamp(inv_mass, min=1e-12))
-        p0 = std[None, :] * torch.randn(xc.shape, generator=gen,
-                                        device=xc.device)
-        x1, log_acc = _quad_proposal(fg, cfg, xc, p0, eps, inv_mass)
+        p0 = momentum_std(inv_mass)[None, :] * torch.randn(
+            xc.shape, generator=gen, device=xc.device)
+        if fg.cont_pure_quad:
+            x1, log_acc = _quad_proposal(fg, cfg, xc, p0, eps, inv_mass)
+        else:
+            from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
+
+            x1, p1, lp0, lp1 = logpot_leapfrog(
+                fg, xc, p0, xd, inv_mass, eps, cfg.n_leapfrog,
+                plan="auto" if cfg.fused_logpot else None)
+            log_acc = _log_accept(lp0, lp1, p0, p1, inv_mass)
     u = torch.rand((C,), generator=gen, device=xc.device)
     return _mh_accept(xc, x1, log_acc, u)
 
@@ -446,27 +443,40 @@ def _mass_refresh(fg: CompiledFG, cfg, state: HMCState) -> HMCState:
     return state._replace(inv_mass=inv_mass)
 
 
-def run_warmup(fg: CompiledFG, cfg, state: HMCState, n_warmup: int,
-               transition):
-    """Two-phase warmup (dual averaging; mass refresh between phases).
-    ``transition(state, adapt) -> (state, acc)``."""
-    if n_warmup <= 0:
-        return state
+def _warmup_boundary(fg: CompiledFG, cfg, state: HMCState,
+                     final: bool) -> HMCState:
+    """The warmup's phase boundary: the mass refresh, then at the half
+    (``final`` False) a fresh start of dual averaging and Welford, at the
+    end the step size frozen at ``log_eps_bar`` and the mode-swap
+    accumulators zeroed (the move's acceptance is reported for the
+    sampling window only)."""
     dev = state.xc.device
-    half = max(n_warmup // 2, 1)
-    for _ in range(half):
-        state, _ = transition(state, True)
     state = _mass_refresh(fg, cfg, state)
-    state = state._replace(
+    if final:
+        return state._replace(log_eps=state.log_eps_bar,
+                              ms_acc_sum=_scalar(0.0, dev),
+                              ms_acc_n=_scalar(0.0, dev))
+    return state._replace(
         h_bar=_scalar(0.0, dev), t=_scalar(0.0, dev),
         welford_mean=torch.zeros(fg.n_cont, device=dev),
         welford_m2=torch.zeros(fg.n_cont, device=dev),
         welford_n=_scalar(0.0, dev),
     )
+
+
+def run_warmup(fg: CompiledFG, cfg, state: HMCState, n_warmup: int,
+               transition):
+    """Two-phase warmup (dual averaging; mass refresh between phases).
+    ``transition(state, adapt) -> (state, stats)``."""
+    if n_warmup <= 0:
+        return state
+    half = max(n_warmup // 2, 1)
+    for _ in range(half):
+        state, _ = transition(state, True)
+    state = _warmup_boundary(fg, cfg, state, final=False)
     for _ in range(n_warmup - half):
         state, _ = transition(state, True)
-    state = _mass_refresh(fg, cfg, state)
-    return state._replace(log_eps=state.log_eps_bar)
+    return _warmup_boundary(fg, cfg, state, final=True)
 
 
 def _da_update(state: HMCState, accept_mean, cfg: HMCConfig):
@@ -610,6 +620,20 @@ def _plain_stream_diag_update(sd: _StreamDiag, t: int, xc, half: int,
                        bm_cur, bm_mean, bm_m2)
 
 
+def _split_rhat(pairs, half: int):
+    """``(rhat, B, W)``: exact split-R̂ from the split halves' Welford pairs
+    (the first four fields of ``pairs``, ``[C, n]`` each, ``half`` ≥ 2
+    draws a half), with the between- and within-chain variances behind
+    it."""
+    h1_mean, h1_m2, h2_mean, h2_m2 = pairs[:4]
+    chain_mean = torch.cat([h1_mean, h2_mean], dim=0)
+    chain_var = torch.cat([h1_m2, h2_m2], dim=0) / (half - 1)
+    B = half * torch.var(chain_mean, dim=0, correction=1)
+    W = torch.mean(chain_var, dim=0)
+    var_hat = (half - 1) / half * W + B / half
+    return torch.sqrt(var_hat / torch.clamp(W, min=1e-12)), B, W
+
+
 def _stream_diag_finalize(sd: _StreamDiag, n_samples: int,
                           bm_len: int = 0) -> dict:
     """{'rhat', 'ess_proxy', 'ess_bm'} ([n] each) from the accumulators.
@@ -624,12 +648,7 @@ def _stream_diag_finalize(sd: _StreamDiag, n_samples: int,
     if half < 2:
         nanv = torch.full((n,), math.nan, device=dev)
         return {"rhat": nanv, "ess_proxy": nanv, "ess_bm": nanv}
-    chain_mean = torch.cat([sd.h1_mean, sd.h2_mean], dim=0)
-    chain_var = torch.cat([sd.h1_m2, sd.h2_m2], dim=0) / (half - 1)
-    B = half * torch.var(chain_mean, dim=0, correction=1)
-    W = torch.mean(chain_var, dim=0)
-    var_hat = (half - 1) / half * W + B / half
-    rhat = torch.sqrt(var_hat / torch.clamp(W, min=1e-12))
+    rhat, _, _ = _split_rhat(sd, half)
     S = n_samples
     # Chan merge of the equal-count halves → per-chain full-window moments
     f_mean = 0.5 * (sd.h1_mean + sd.h2_mean)
@@ -728,12 +747,7 @@ def _stream_diag_disc_finalize(sdd: _StreamDiagDisc, n_samples: int) -> dict:
     dev = sdd.h1_mean.device
     if half < 2:
         return {"rhat_disc": torch.full((n,), math.nan, device=dev)}
-    chain_mean = torch.cat([sdd.h1_mean, sdd.h2_mean], dim=0)
-    chain_var = torch.cat([sdd.h1_m2, sdd.h2_m2], dim=0) / (half - 1)
-    B = half * torch.var(chain_mean, dim=0, correction=1)
-    W = torch.mean(chain_var, dim=0)
-    var_hat = (half - 1) / half * W + B / half
-    rhat = torch.sqrt(var_hat / torch.clamp(W, min=1e-12))
+    rhat, B, W = _split_rhat(sdd, half)
     frozen = (W <= 0.0) & (B <= 1e-12)
     return {"rhat_disc": torch.where(frozen, torch.ones_like(rhat), rhat)}
 
@@ -761,11 +775,11 @@ def _bm_schedule(n_samples: int) -> tuple:
 
 
 class _MomentStream:
-    """The moments-mode accumulators of ``run_hmc`` and ``nuts.run_nuts``:
-    sums for the mean and variance, per-value counts of the discrete
-    latents, and with ``stream_diag`` the streamed split-R̂/ESS of the
-    continuous draws and the split-R̂ of the value traces of up to
-    ``disc_diag_cap`` discrete latents (``disc_diag_select``).
+    """The moments-mode accumulators of ``run_chains``: sums for the mean
+    and variance, per-value counts of the discrete latents, and with
+    ``stream_diag`` the streamed split-R̂/ESS of the continuous draws and
+    the split-R̂ of the value traces of up to ``disc_diag_cap`` discrete
+    latents (``disc_diag_select``).
 
     ``n_chains`` counts every rank's chains; under ``shard`` this rank
     folds in its own block, and ``finalize`` reduces the sums and
@@ -864,15 +878,86 @@ def _gate(cfg, gen):
     return gate_generator(gen)
 
 
-def _ms_diag(cfg, state: HMCState, shard=None) -> dict:
-    """``mode_swap_accept``: the move's acceptance per application over
-    the sampling window, where the move is on (every rank's chains: the
-    ranks' per-application means are over equal chain counts, and the
-    shared gate gives them equal application counts)."""
-    if not cfg.mode_swap:
-        return {}
-    acc = all_reduce(state.ms_acc_sum, shard) / n_chain_shards(shard)
-    return {"mode_swap_accept": acc / torch.clamp(state.ms_acc_n, min=1.0)}
+def _window_diag(state: HMCState, sums: dict, n_samples: int,
+                 mode_swap: bool, shard=None) -> dict:
+    """The sampling window's diagnostics over every rank's chains: each
+    statistic's window sum in ``sums`` as its mean over the draws, the
+    step size, the mass and, where the move is on, ``mode_swap_accept``
+    per application (the ranks' means are over equal chain counts, and
+    the shared gate gives them equal application counts)."""
+    k = n_chain_shards(shard)
+    diag = {name: all_reduce(v, shard) / (k * max(n_samples, 1))
+            for name, v in sums.items()}
+    diag.update(step_size=torch.exp(state.log_eps), inv_mass=state.inv_mass)
+    if mode_swap:
+        acc = all_reduce(state.ms_acc_sum, shard) / k
+        diag["mode_swap_accept"] = acc / torch.clamp(state.ms_acc_n, min=1.0)
+    return diag
+
+
+def run_chains(fg: CompiledFG, gen, cfg: HMCConfig, step, stats: tuple, *,
+               who: str, n_chains: int, n_warmup: int, n_samples: int,
+               thin: int, collect: str, stream_diag: bool,
+               disc_diag_cap: int, shard=None):
+    """The chain loop of ``run_hmc`` and ``nuts.run_nuts``, with
+    ``run_hmc``'s contract (``who`` names the caller in a refusal): a fresh
+    state, ``run_warmup`` (reading ``cfg``), the sampling window and its
+    diagnostics. ``step(state, gen, gate, adapt) -> (state, stats)`` is
+    one transition of this rank's chains, ``stats`` a dict of per-chain
+    ``[C]`` tensors. A kept draw reports the LAST transition of its
+    ``thin`` block, as the reference's ``fori_loop`` carry (reference
+    hmc.py:900-910): ``diag`` holds each entry named in ``stats`` as its
+    mean over the kept draws and every rank's chains."""
+    if collect not in ("samples", "moments"):
+        raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
+    fg.require_whole(who)
+    dev = fg.device
+    C = local_count(n_chains, shard)
+    gen, shared = ((gen, gen) if shard is None
+                   else split_generator(gen, shard.rank))
+    state = init_hmc_state(fg, gen, cfg, C)
+    gate = _gate(cfg, shared)
+
+    def trans(s, adapt):
+        return step(s, gen, gate, adapt)
+
+    state = run_warmup(fg, cfg, state, n_warmup, trans)
+    sums = {name: torch.zeros((), device=dev) for name in stats}
+    ms = (_MomentStream(fg, n_chains, n_samples, stream_diag, disc_diag_cap,
+                        shard) if collect == "moments" else None)
+    s_xc, s_xd = [], []
+    for t in range(n_samples):
+        for _ in range(thin):
+            state, last = trans(state, False)
+        means = [torch.mean(last[name].to(torch.float32)) for name in stats]
+        for name, m in zip(stats, means):
+            sums[name] = sums[name] + m
+        if ms is not None:
+            ms.update(t, state.xc, state.xd)
+        else:
+            s_xc.append(state.xc)
+            s_xd.append(state.xd)
+    moments, stream = ms.finalize() if ms is not None else (None, {})
+    diag = {**_window_diag(state, sums, n_samples, cfg.mode_swap, shard),
+            **stream}
+    if ms is not None:
+        return moments, None, diag
+    if not s_xc:
+        return (torch.zeros((0, C, fg.n_cont), device=dev),
+                torch.zeros((0, C, fg.n_disc), dtype=torch.int64,
+                            device=dev), diag)
+    return torch.stack(s_xc), torch.stack(s_xd), diag
+
+
+def chain_step(fg: CompiledFG, cfg: HMCConfig, shard=None):
+    """``run_chains``'s step of HMC: one ``hmc_transition`` (looked up at
+    call time), reporting ``accept_rate``."""
+
+    def step(state, gen, gate, adapt):
+        state, acc = hmc_transition(fg, cfg, state, gen, adapt, gate, shard)
+        return state, {"accept_rate": acc}
+
+    return step
 
 
 def run_hmc(
@@ -912,68 +997,16 @@ def run_hmc(
     ``disc_diag_select``); 0 disables it. With ``cfg.mode_swap``,
     ``diag`` also holds ``mode_swap_accept`` (per application, over the
     sampling window). The call is span ``hmc.query``, which opens a new
-    query id (``utils.metrics.span``).
+    query id (``utils.metrics.span``), around ``run_chains``.
     """
-    if collect not in ("samples", "moments"):
-        raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
     with span("hmc.query", new_query=True):
-        fg.require_whole("run_hmc")
         fg, cfg = _ensure_mode_swap_plan(fg, cfg)
-        dev = fg.device
-        C = local_count(n_chains, shard)
-        gen, shared = ((gen, gen) if shard is None
-                       else split_generator(gen, shard.rank))
-        state = init_hmc_state(fg, gen, cfg, C)
-        gate = _gate(cfg, shared)
-
-        def trans(s, adapt):
-            return hmc_transition(fg, cfg, s, gen, adapt, gate, shard)
-
-        state = run_warmup(fg, cfg, state, n_warmup, trans)
-        # the move's acceptance is reported for the sampling window only
-        state = state._replace(ms_acc_sum=_scalar(0.0, dev),
-                               ms_acc_n=_scalar(0.0, dev))
-
-        def sample_step(state):
-            # as the reference's fori_loop carry: the block reports the LAST
-            # transition's mean acceptance (reference hmc.py:900-910)
-            for _ in range(thin):
-                state, acc = trans(state, False)
-            return state, torch.mean(acc)
-
-        acc_total = torch.zeros((), device=dev)
-
-        def base_diag(state):
-            acc = all_reduce(acc_total, shard) / n_chain_shards(shard)
-            return {
-                "accept_rate": acc / max(n_samples, 1),
-                "step_size": torch.exp(state.log_eps),
-                "inv_mass": state.inv_mass,
-                **_ms_diag(cfg, state, shard),
-            }
-
-        if collect == "moments":
-            ms = _MomentStream(fg, n_chains, n_samples, stream_diag,
-                               disc_diag_cap, shard)
-            for t in range(n_samples):
-                state, acc = sample_step(state)
-                acc_total = acc_total + acc
-                ms.update(t, state.xc, state.xd)
-            moments, stream = ms.finalize()
-            return moments, None, {**base_diag(state), **stream}
-
-        s_xc, s_xd = [], []
-        for _ in range(n_samples):
-            state, acc = sample_step(state)
-            acc_total = acc_total + acc
-            s_xc.append(state.xc)
-            s_xd.append(state.xd)
-        diag = base_diag(state)
-        if not s_xc:
-            return (torch.zeros((0, C, fg.n_cont), device=dev),
-                    torch.zeros((0, C, fg.n_disc), dtype=torch.int64,
-                                device=dev), diag)
-        return torch.stack(s_xc), torch.stack(s_xd), diag
+        return run_chains(
+            fg, gen, cfg, chain_step(fg, cfg, shard), ("accept_rate",),
+            who="run_hmc", n_chains=n_chains, n_warmup=n_warmup,
+            n_samples=n_samples, thin=thin, collect=collect,
+            stream_diag=stream_diag, disc_diag_cap=disc_diag_cap,
+            shard=shard)
 
 
 def _to_numpy(v):
@@ -1043,11 +1076,13 @@ class HMCMoments(_Queries):
         return self.moments["disc_probs"][i, : self.fg.meta.disc_size(rv)]
 
 
+def _result(fg: CompiledFG, out) -> _Queries:
+    """The query wrapper of a run's ``(moments, None, diag)`` or
+    ``(samples_xc, samples_xd, diag)``."""
+    a, b, diag = out
+    return HMCMoments(fg, a, diag) if b is None else HMCResult(fg, a, b, diag)
+
+
 def sample(fg: CompiledFG, gen, **kw):
     """Convenience wrapper: run and wrap results for RV-level queries."""
-    cfg = kw.pop("cfg", HMCConfig())
-    if kw.get("collect") == "moments":
-        moments, _, diag = run_hmc(fg, gen, cfg, **kw)
-        return HMCMoments(fg, moments, diag)
-    s_xc, s_xd, diag = run_hmc(fg, gen, cfg, **kw)
-    return HMCResult(fg, s_xc, s_xd, diag)
+    return _result(fg, run_hmc(fg, gen, kw.pop("cfg", HMCConfig()), **kw))

@@ -19,11 +19,9 @@ on the latter each leaf's gradient is autograd over
 move by the chromatic Gibbs sweeps of ``engines.hmc`` before each
 transition (NUTS-within-Gibbs).
 
-Same contract as ``hmc.run_hmc`` (``collect="moments"|"samples"``,
-``thin``, ``stream_diag``, ``disc_diag_cap``, ``mode_swap`` with
-``diag["mode_swap_accept"]``, ``shard`` over the ranks of a process
-group: each rank runs its chains' K3 launches, the adaptation and the
-diagnostics reduce over all ranks).
+``run_nuts`` runs through ``hmc.run_chains``, the chain loop of
+``hmc.run_hmc``, and so has its contract (``shard`` included: each rank
+runs its chains' K3 launches).
 """
 
 from __future__ import annotations
@@ -35,8 +33,6 @@ import torch
 
 from lhvi_tpu_torch.engines import hmc as _hmc
 from lhvi_tpu_torch.fg.compile import CompiledFG
-from lhvi_tpu_torch.parallel.mesh import (all_reduce, local_count,
-                                          n_chain_shards, split_generator)
 from lhvi_tpu_torch.utils.debug import check_nan
 from lhvi_tpu_torch.utils.metrics import count, span
 
@@ -44,6 +40,8 @@ _DIVERGENCE = 1000.0
 # transitions whose per-chain leaf counts ``run_nuts`` holds before it folds
 # them into its running sum (three launches a fold, none a transition)
 _LEAF_FOLD = 32
+# the statistics of ``chain_step`` that ``hmc.run_chains`` reports in diag
+_STATS = ("accept_rate", "mean_depth", "divergence_rate")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +54,6 @@ class NUTSConfig:
     adapt_mass: bool = True
     jitter: float = 1.0
     gibbs_unroll: int = 1
-    # fused trajectory kernel (K3) on dense pure-quadratic targets; False
-    # keeps the lockstep loop (the reference's ``pallas`` flag)
-    traj_kernel: bool = True
     # orbit-level mode-swap MH move after the Gibbs stage
     mode_swap: bool = False
     mode_swap_every: int = 1
@@ -292,20 +287,19 @@ def _nuts_lockstep(fg: CompiledFG, gen, xc, xd, eps, inv_mass,
 
 
 def _nuts_sweep_batched(fg: CompiledFG, gen, xc, xd, eps, inv_mass,
-                        max_depth: int, traj_kernel: bool = True,
-                        uniforms=None):
+                        max_depth: int, uniforms=None):
     """One NUTS transition for ALL chains →
     ``(xc', accept_stat [C], depth [C], diverged [C], n_leaf [C] i32)``,
     ``n_leaf`` the leapfrog leaves each chain integrated until its tree
     stopped (on both routes).
 
-    Dense pure-quadratic targets route through the fused trajectory
-    (``ops.nuts_traj.nuts_trajectory``: K3 on CUDA tensors) when
-    ``traj_kernel`` is set; everything else takes the lockstep loop, as in
-    the reference. ``uniforms`` (see :func:`_nuts_lockstep`) fixes the
-    tree's uniforms on either route.
+    The one place NUTS's route is chosen: dense pure-quadratic targets on
+    CUDA tensors take the fused trajectory (``ops.nuts_traj.
+    nuts_trajectory``, kernel K3); everything else takes the lockstep loop,
+    K3's plain version, as the reference's XLA path. ``uniforms`` (see
+    :func:`_nuts_lockstep`) fixes the tree's uniforms on either route.
     """
-    if traj_kernel and fg.cont_pure_quad and not fg.quad_sparse:
+    if xc.is_cuda and fg.cont_pure_quad and not fg.quad_sparse:
         from lhvi_tpu_torch.ops.nuts_traj import nuts_trajectory
 
         return nuts_trajectory(fg, gen, xc, eps, inv_mass, max_depth,
@@ -338,14 +332,27 @@ def nuts_transition(fg: CompiledFG, cfg: NUTSConfig, state: _hmc.HMCState,
                 torch.zeros((C,), dtype=torch.bool, device=dev), zeros)
         eps = torch.exp(state.log_eps)
         xc, acc, depth, div, n_leaf = _nuts_sweep_batched(
-            fg, gen, state.xc, xd, eps, state.inv_mass, cfg.max_depth,
-            traj_kernel=cfg.traj_kernel)
+            fg, gen, state.xc, xd, eps, state.inv_mass, cfg.max_depth)
         check_nan("nuts_transition", xc=xc, acc=acc)
         state = state._replace(xc=xc, xd=xd)
         if adapt:
             state = _hmc._da_update(state, _hmc.chain_mean(acc, shard), hcfg)
             state = _hmc._welford_update(state, xc, shard)
     return state, (acc, depth, div, n_leaf)
+
+
+def chain_step(fg: CompiledFG, cfg: NUTSConfig, shard=None):
+    """``hmc.run_chains``'s step of NUTS: one ``nuts_transition`` (looked
+    up at call time), reporting ``_STATS`` and each chain's leaves as
+    ``n_leaf``."""
+
+    def step(state, gen, gate, adapt):
+        state, (acc, depth, div, n_leaf) = nuts_transition(
+            fg, cfg, state, gen, adapt, gate, shard)
+        return state, {"accept_rate": acc, "mean_depth": depth,
+                       "divergence_rate": div, "n_leaf": n_leaf}
+
+    return step
 
 
 def run_nuts(
@@ -361,16 +368,10 @@ def run_nuts(
     disc_diag_cap: int = 4096,
     shard=None,
 ):
-    """NUTS-within-Gibbs over the compiled graph; the contract of
-    ``hmc.run_hmc`` (``shard`` included).
-
-    collect="samples": ``(samples_xc [S, C, n_cont], samples_xd, diag)``;
-    collect="moments": ``(moments, None, diag)`` with the discrete
-    marginals (``disc_probs``) and, when ``stream_diag``, the streamed
-    split-R̂/ESS and the discrete split-R̂ over up to ``disc_diag_cap``
-    latents (``rhat_disc``, ``disc_diag_idx``). Each emitted sample
-    reports the LAST transition of its ``thin`` block (acceptance, depth,
-    divergence), as the reference's ``fori_loop`` carry does.
+    """NUTS-within-Gibbs over the compiled graph through
+    ``hmc.run_chains``, with the contract of ``hmc.run_hmc`` (``shard``
+    included); ``diag`` adds ``mean_depth`` and ``divergence_rate``, read
+    as the acceptance is.
 
     The call is span ``nuts.query``, which opens a new query id. The
     leaves every chain integrated, over all transitions, are summed on the
@@ -378,19 +379,10 @@ def run_nuts(
     launch) and added to the counter ``nuts.leaves`` once, at the end (one
     read to the host a call, none a transition).
     """
-    if collect not in ("samples", "moments"):
-        raise ValueError(f"collect must be 'samples' or 'moments': {collect}")
     with span("nuts.query", new_query=True):
-        fg.require_whole("run_nuts")
         fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
-        dev = fg.device
-        hcfg = cfg.to_hmc()
-        C = local_count(n_chains, shard)
-        gen, shared = ((gen, gen) if shard is None
-                       else split_generator(gen, shard.rank))
-        state = _hmc.init_hmc_state(fg, gen, hcfg, C)
-        gate = _hmc._gate(cfg, shared)
-        leaves = torch.zeros((), dtype=torch.int64, device=dev)
+        base = chain_step(fg, cfg, shard)
+        leaves = torch.zeros((), dtype=torch.int64, device=fg.device)
         pending = []  # per-chain leaf counts not yet in ``leaves``
 
         def fold_leaves():
@@ -399,68 +391,18 @@ def run_nuts(
                 leaves = leaves + torch.sum(torch.stack(pending))
                 pending.clear()
 
-        def transition(s, adapt):
-            s, stats = nuts_transition(fg, cfg, s, gen, adapt, gate, shard)
-            pending.append(stats[3])
+        def step(state, g, gate, adapt):
+            state, stats = base(state, g, gate, adapt)
+            pending.append(stats["n_leaf"])
             if len(pending) == _LEAF_FOLD:
                 fold_leaves()
-            return s, stats
+            return state, stats
 
-        state = _hmc.run_warmup(fg, hcfg, state, n_warmup,
-                                lambda s, adapt: (transition(s, adapt)[0],
-                                                  None))
-        state = state._replace(ms_acc_sum=torch.zeros((), device=dev),
-                               ms_acc_n=torch.zeros((), device=dev))
-
-        def sample_step(state):
-            for _ in range(thin):
-                state, stats = transition(state, False)
-            acc, depth, div, _ = stats
-            return state, (torch.mean(acc),
-                           torch.mean(depth.to(torch.float32)),
-                           torch.mean(div.to(torch.float32)))
-
-        tot = [torch.zeros((), device=dev) for _ in range(3)]
-
-        def add(stats):
-            for i, v in enumerate(stats):
-                tot[i] = tot[i] + v
-
-        def base_diag(state):
-            S = max(n_samples, 1) * n_chain_shards(shard)
-            acc, depth, div = (all_reduce(v, shard) / S for v in tot)
-            return {
-                "accept_rate": acc,
-                "mean_depth": depth,
-                "divergence_rate": div,
-                "step_size": torch.exp(state.log_eps),
-                "inv_mass": state.inv_mass,
-                **_hmc._ms_diag(cfg, state, shard),
-            }
-
-        if collect == "moments":
-            ms = _hmc._MomentStream(fg, n_chains, n_samples, stream_diag,
-                                    disc_diag_cap, shard)
-            for t in range(n_samples):
-                state, stats = sample_step(state)
-                add(stats)
-                ms.update(t, state.xc, state.xd)
-            moments, stream = ms.finalize()
-            out = moments, None, {**base_diag(state), **stream}
-        else:
-            s_xc, s_xd = [], []
-            for _ in range(n_samples):
-                state, stats = sample_step(state)
-                add(stats)
-                s_xc.append(state.xc)
-                s_xd.append(state.xd)
-            diag = base_diag(state)
-            if s_xc:
-                out = torch.stack(s_xc), torch.stack(s_xd), diag
-            else:
-                out = (torch.zeros((0, C, fg.n_cont), device=dev),
-                       torch.zeros((0, C, fg.n_disc), dtype=torch.int64,
-                                   device=dev), diag)
+        out = _hmc.run_chains(
+            fg, gen, cfg.to_hmc(), step, _STATS, who="run_nuts",
+            n_chains=n_chains, n_warmup=n_warmup, n_samples=n_samples,
+            thin=thin, collect=collect, stream_diag=stream_diag,
+            disc_diag_cap=disc_diag_cap, shard=shard)
         fold_leaves()
         count("nuts.leaves", int(leaves))
         return out
@@ -468,9 +410,5 @@ def run_nuts(
 
 def sample(fg: CompiledFG, gen, **kw):
     """Convenience wrapper: run and wrap results for RV-level queries."""
-    cfg = kw.pop("cfg", NUTSConfig())
-    if kw.get("collect") == "moments":
-        moments, _, diag = run_nuts(fg, gen, cfg, **kw)
-        return _hmc.HMCMoments(fg, moments, diag)
-    s_xc, s_xd, diag = run_nuts(fg, gen, cfg, **kw)
-    return _hmc.HMCResult(fg, s_xc, s_xd, diag)
+    return _hmc._result(fg, run_nuts(fg, gen, kw.pop("cfg", NUTSConfig()),
+                                     **kw))

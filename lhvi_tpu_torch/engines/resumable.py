@@ -156,21 +156,13 @@ def _sums_of(ms, acc_sum, empty_disc):
 def finalize(fg: CompiledFG, state, sums, n_samples: int, n_chains: int,
              mode_swap: bool = False, sel=None, shard=None):
     """``HMCMoments`` of a finished run from its accumulators (this rank's
-    part under ``shard``): the reference's closing block, through the same
-    reductions as ``hmc.run_hmc``."""
+    part under ``shard``): the reference's closing block, through the
+    window diagnostics of ``hmc.run_chains``."""
     moments, stream = _moment_stream(fg, sums, n_samples, n_chains, sel,
                                      shard).finalize()
-    k = n_chain_shards(shard)
-    diag = {
-        "accept_rate": all_reduce(sums[3], shard) / k / n_samples,
-        "step_size": torch.exp(state.log_eps),
-        "inv_mass": state.inv_mass,
-        **({"mode_swap_accept":
-            all_reduce(state.ms_acc_sum, shard) / k
-            / torch.clamp(state.ms_acc_n, min=1.0)} if mode_swap else {}),
-        **stream,
-    }
-    return _hmc.HMCMoments(fg, moments, diag)
+    diag = _hmc._window_diag(state, {"accept_rate": sums[3]}, n_samples,
+                             mode_swap, shard)
+    return _hmc.HMCMoments(fg, moments, {**diag, **stream})
 
 
 def sample_checkpointed(
@@ -207,23 +199,11 @@ def sample_checkpointed(
     from lhvi_tpu_torch.utils.checkpoint import CheckpointManager
 
     if engine == "hmc":
-        cfg = cfg or _hmc.HMCConfig()
-        fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
-        hcfg = cfg
-
-        def trans(state, g, gate, adapt):
-            return _hmc.hmc_transition(fg, cfg, state, g, adapt, gate, shard)
-
+        fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg or _hmc.HMCConfig())
+        hcfg, step = cfg, _hmc.chain_step(fg, cfg, shard)
     elif engine == "nuts":
-        cfg = cfg or _nuts.NUTSConfig()
-        fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
-        hcfg = cfg.to_hmc()
-
-        def trans(state, g, gate, adapt):
-            state, (acc, *_) = _nuts.nuts_transition(fg, cfg, state, g,
-                                                     adapt, gate, shard)
-            return state, acc
-
+        fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg or _nuts.NUTSConfig())
+        hcfg, step = cfg.to_hmc(), _nuts.chain_step(fg, cfg, shard)
     else:
         raise ValueError(f"unknown engine {engine!r} (hmc|nuts)")
 
@@ -244,12 +224,10 @@ def sample_checkpointed(
         return g, _hmc._gate(cfg, _chunk_gen(dev, seed, phase, index))
 
     def fresh_sums():
-        z = torch.zeros
-        return (z(fg.n_cont, device=dev), z(fg.n_cont, device=dev),
-                z((max(fg.n_disc, 1), fg.max_v), device=dev),
-                z((), device=dev),
-                *_hmc._stream_diag_init(C, fg.n_cont, dev),
-                *_hmc._stream_diag_disc_init(C, n_sel, dev))
+        ms = _hmc._MomentStream(fg, n_chains, n_samples, True, disc_diag_cap,
+                                shard)
+        return _sums_of(ms, torch.zeros((), device=dev),
+                        _hmc._stream_diag_disc_init(C, 0, dev))
 
     def local_part(state, sums):
         """The rank's part of an all-chains (state, sums)."""
@@ -307,10 +285,10 @@ def sample_checkpointed(
         next_step = latest + 1
 
     # --- warmup, chunk-dispatched + checkpointed ---------------------------
-    # the two phases of hmc.run_warmup: a mass refresh and a dual-averaging
-    # reset at half_w, the final refresh and the log_eps_bar freeze at
-    # n_warmup. A chunk's generator is keyed by its phase and first
-    # transition, so the same chunks draw the same numbers on a resume.
+    # the two phases of hmc.run_warmup, with its phase boundary at half_w
+    # and n_warmup (on a resume from mid-warmup too). A chunk's generator
+    # is keyed by its phase and first transition, so the same chunks draw
+    # the same numbers on a resume.
     half_w = max(n_warmup // 2, 1) if n_warmup > 0 else 0
     w_chunks_saved = 0
     while warmup_done < n_warmup:
@@ -321,23 +299,12 @@ def sample_checkpointed(
         n = min(chunk_size, pend - pos)
         g, gate = chunk_gens(phase, pos)
         for _ in range(n):
-            state, _ = trans(state, g, gate, True)
+            state, _ = step(state, g, gate, True)
         warmup_done += n
         if warmup_done == half_w:
-            state = _hmc._mass_refresh(fg, hcfg, state)
-            state = state._replace(
-                h_bar=_hmc._scalar(0.0, dev), t=_hmc._scalar(0.0, dev),
-                welford_mean=torch.zeros(fg.n_cont, device=dev),
-                welford_m2=torch.zeros(fg.n_cont, device=dev),
-                welford_n=_hmc._scalar(0.0, dev))
+            state = _hmc._warmup_boundary(fg, hcfg, state, final=False)
         if warmup_done == n_warmup:
-            state = _hmc._mass_refresh(fg, hcfg, state)
-            # the move's acceptance over the sampling window only, as
-            # run_hmc (this branch runs once per job, also on a resume
-            # from mid-warmup)
-            state = state._replace(log_eps=state.log_eps_bar,
-                                   ms_acc_sum=_hmc._scalar(0.0, dev),
-                                   ms_acc_n=_hmc._scalar(0.0, dev))
+            state = _hmc._warmup_boundary(fg, hcfg, state, final=True)
         state, sums = save(next_step, state, sums, 0, warmup_done)
         next_step += 1
         w_chunks_saved += 1
@@ -355,8 +322,8 @@ def sample_checkpointed(
         ms = _moment_stream(fg, sums, n_samples, n_chains, sel, shard)
         acc_sum = sums[3]
         for i in range(n):
-            state, acc = trans(state, g, gate, False)
-            acc_sum = acc_sum + torch.mean(acc)
+            state, stats = step(state, g, gate, False)
+            acc_sum = acc_sum + torch.mean(stats["accept_rate"])
             ms.update(c * chunk_size + i, state.xc, state.xd)
         sums = _sums_of(ms, acc_sum, sums[13:])
         state, sums = save(next_step, state, sums, c + 1, n_warmup)

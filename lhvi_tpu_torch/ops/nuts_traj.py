@@ -10,9 +10,9 @@ load serves all of them, and refills a slot from its own range of chains
 as soon as that slot's chain is done; :func:`k3_launch` chooses the
 geometry.
 
-``nuts_trajectory`` launches K3 for CUDA tensors and runs the plain
-version, ``engines.nuts._nuts_lockstep``, for CPU tensors; there is no
-other route.
+``nuts_trajectory`` launches K3 and takes CUDA tensors only; its plain
+version is the engine's lockstep loop, ``engines.nuts._nuts_lockstep``,
+and ``engines.nuts._nuts_sweep_batched`` chooses between the two.
 """
 
 from __future__ import annotations
@@ -199,30 +199,26 @@ def nuts_trajectory(fg, gen, xc, eps, inv_mass, max_depth: int,
     host.
 
     Momenta ``p0 = std·N(0, 1)`` are the first draw from ``gen``, as in
-    the reference. CUDA tensors then go through K3
-    (counter ``ops.k3.launches`` counts its launches), whose uniforms come
-    from Philox keyed by ``gen.initial_seed()`` and ``gen``'s Philox
-    offset, which the call advances as a draw of its own would. CPU tensors
-    go through the plain version. ``uniforms`` ([3, 2^max_depth, C]: the
-    direction, leaf and merge uniforms by step) replaces the uniform draws
-    on either route, so both follow the same tree.
+    the reference; K3 (counter ``ops.k3.launches`` counts its launches)
+    takes its uniforms from Philox keyed by ``gen.initial_seed()`` and
+    ``gen``'s Philox offset, which the call advances as a draw of its own
+    would. ``uniforms`` ([3, 2^max_depth, C]: the direction, leaf and
+    merge uniforms by step) replaces those draws, so that the lockstep
+    loop given the same table follows the same tree. Raises on a tensor
+    that is not on a CUDA device.
     """
-    if xc.is_cuda:
-        C, n = xc.shape
-        p0 = momentum_std(inv_mass)[None, :] * torch.randn(
-            (C, n), generator=gen, device=xc.device)
-        seed = offset = 0
-        if uniforms is None:
-            seed, offset = gen.initial_seed() ^ _KEY_TAG, gen.get_offset()
-            gen.set_offset(offset + 4)  # CUDA offsets step in fours
-        qp, sum_acc, n_leaf, depth, div = _cuda_nuts_traj(
-            xc.contiguous(), p0, fg.quad_J, fg.quad_h, inv_mass.contiguous(),
-            eps, max_depth, seed, offset, uniforms)
-        acc = sum_acc / torch.clamp(n_leaf, min=1).to(torch.float32)
-        return qp, acc, depth, div, n_leaf
-    if xc.device.type != "cpu":
-        raise NotImplementedError(f"nuts_trajectory: no route for {xc.device}")
-    from lhvi_tpu_torch.engines.nuts import _nuts_sweep_batched
-
-    return _nuts_sweep_batched(fg, gen, xc, None, eps, inv_mass, max_depth,
-                               traj_kernel=False, uniforms=uniforms)
+    if not xc.is_cuda:
+        raise NotImplementedError(
+            f"nuts_trajectory: K3 takes CUDA tensors, not {xc.device}")
+    C, n = xc.shape
+    p0 = momentum_std(inv_mass)[None, :] * torch.randn(
+        (C, n), generator=gen, device=xc.device)
+    seed = offset = 0
+    if uniforms is None:
+        seed, offset = gen.initial_seed() ^ _KEY_TAG, gen.get_offset()
+        gen.set_offset(offset + 4)  # CUDA offsets step in fours
+    qp, sum_acc, n_leaf, depth, div = _cuda_nuts_traj(
+        xc.contiguous(), p0, fg.quad_J, fg.quad_h, inv_mass.contiguous(),
+        eps, max_depth, seed, offset, uniforms)
+    acc = sum_acc / torch.clamp(n_leaf, min=1).to(torch.float32)
+    return qp, acc, depth, div, n_leaf

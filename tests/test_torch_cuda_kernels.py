@@ -514,11 +514,12 @@ def test_nuts_traj_kernel_is_bitwise_reproducible(dev, n, D):
 
 def test_nuts_leaves_k3_equal_the_lockstep_count(dev):
     """The leaves K3 reports a chain integrated are the lockstep loop's for
-    the same tree (same p0, same uniforms table): equal on every chain whose
-    tree agrees, so ``nuts.leaves`` reads the same on either route; and
-    ``run_nuts`` adds the per-chain leaves of every transition to the
-    counter once."""
+    the same tree (same generator seed, so the same p0, and the same
+    uniforms table): equal on every chain whose tree agrees, so
+    ``nuts.leaves`` reads the same on either route; and ``run_nuts`` adds
+    the per-chain leaves of every transition to the counter once."""
     from lhvi_tpu_torch.engines import nuts
+    from lhvi_tpu_torch.ops import nuts_traj as nt
 
     g, _ = gaussian_grid(10, 10, seed=0, evidence_frac=0.2)
     fg = lt.compile_graph(g, dev)
@@ -528,14 +529,14 @@ def test_nuts_leaves_k3_equal_the_lockstep_count(dev):
     xc = mode[None] + 0.5 * torch.randn((C, n), generator=gen, device=dev)
     im = torch.ones(n, device=dev)
     U = torch.rand((3, 1 << D, C), generator=gen, device=dev)
-    out = {}
-    for route in (True, False):
-        out[route] = nuts._nuts_sweep_batched(
-            fg, torch.Generator(dev).manual_seed(9), xc, None,
-            torch.tensor(0.12, device=dev), im, D, traj_kernel=route,
-            uniforms=U)
+    eps = torch.tensor(0.12, device=dev)
+    k3 = nt.nuts_trajectory(fg, torch.Generator(dev).manual_seed(9), xc,
+                            eps, im, D, uniforms=U)
+    q, _, n_leaf, depth, _ = nuts._nuts_lockstep(
+        fg, torch.Generator(dev).manual_seed(9), xc, None, eps, im, D,
+        uniforms=U)
     torch.cuda.synchronize()
-    k3, plain = out[True], out[False]
+    plain = (q, None, depth, None, n_leaf)
     same_tree = ((k3[0] - plain[0]).abs() <= 1e-4 * torch.clamp(
         plain[0].abs(), min=1.0)).all(dim=1) & (k3[2] == plain[2])
     assert float(same_tree.float().mean()) >= 0.97

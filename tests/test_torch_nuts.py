@@ -124,16 +124,19 @@ def test_lockstep_uniform_table_is_deterministic_and_chainwise():
 
 
 def test_trajectory_routes_to_the_plain_version_on_cpu():
-    """``nuts_trajectory`` on CPU tensors is the lockstep loop (no kernel
-    launch), with p0 the first draw of the generator."""
+    """A NUTS transition on a dense target's CPU tensors is the lockstep
+    loop (no kernel launch), with p0 the first draw of the generator;
+    ``nuts_trajectory``, K3's wrapper, refuses CPU tensors."""
     fg, _, _ = _corr_gaussian()
     C, D = 64, 4
     xc = torch.zeros((C, 2))
     im = torch.tensor([1.0, 0.5])
     U = torch.rand((3, 2**D, C), generator=torch.Generator().manual_seed(9))
+    with pytest.raises(NotImplementedError, match="CUDA tensors"):
+        nuts_traj.nuts_trajectory(fg, torch.Generator(), xc, 0.3, im, D)
     before = counters()["ops.k3.launches"]
-    a = nuts_traj.nuts_trajectory(fg, torch.Generator().manual_seed(4), xc,
-                                  0.3, im, D, uniforms=U)
+    a = nuts._nuts_sweep_batched(fg, torch.Generator().manual_seed(4), xc,
+                                 None, 0.3, im, D, uniforms=U)
     gen = torch.Generator().manual_seed(4)
     p0 = nuts_traj.momentum_std(im)[None] * torch.randn((C, 2), generator=gen)
     q, sa, nl, d, dv = nuts._nuts_lockstep(fg, None, xc, None, 0.3, im, D,
@@ -297,9 +300,9 @@ def test_nuts_samples_mode_on_the_verify_model():
 def test_samples_mode_and_config_mapping():
     """collect="samples" returns [S, C, n] draws with the reference's
     diagnostics; to_hmc carries the shared fields; the lockstep loop runs
-    on a dense target with the kernel switched off."""
+    on a dense target on CPU tensors."""
     fg, a, _ = _corr_gaussian()
-    cfg = nuts.NUTSConfig(max_depth=5, init_step_size=0.3, traj_kernel=False)
+    cfg = nuts.NUTSConfig(max_depth=5, init_step_size=0.3)
     hc = cfg.to_hmc()
     assert isinstance(hc, hmc.HMCConfig) and hc.init_step_size == 0.3
     s_xc, s_xd, diag = nuts.run_nuts(fg, torch.Generator().manual_seed(1),

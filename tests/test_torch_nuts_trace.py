@@ -81,8 +81,7 @@ def test_lockstep_leaves_stop_with_each_chains_tree():
     gen = torch.Generator().manual_seed(3)
     xc = torch.randn((C, fg.n_cont), generator=gen)
     _, _, depth, div, n_leaf = nuts._nuts_sweep_batched(
-        fg, gen, xc, None, torch.tensor(0.3), torch.ones(fg.n_cont), D,
-        traj_kernel=False)
+        fg, gen, xc, None, torch.tensor(0.3), torch.ones(fg.n_cont), D)
     assert bool((n_leaf <= (1 << depth) - 1).all())
     assert bool((n_leaf >= (1 << (depth - 1))).all())  # every earlier level
     assert int(depth.min()) < int(depth.max())  # trees of several sizes

@@ -164,11 +164,12 @@ def test_resume_bitwise_with_mode_swap(tmp_path, every):
 @pytest.mark.parametrize("engine", ["hmc", "nuts"])
 def test_chunk_generators_key_k2_and_k3_apart(tmp_path, monkeypatch, engine):
     """Every chunk draws from a generator of its own: the generators that
-    reach K2's wrapper (HMC on a banded grid) and K3's (NUTS on a dense
-    grid), whose seeds key the kernels' in-kernel Philox on the card, have
-    a distinct initial seed in every chunk, and each chunk's proposals all
-    see that chunk's generator."""
-    from lhvi_tpu_torch.ops import dia, nuts_traj
+    reach K2's wrapper (HMC on a banded grid) and NUTS's route to K3's
+    (``_nuts_sweep_batched`` on a dense grid), whose seeds key the
+    kernels' in-kernel Philox on the card, have a distinct initial seed in
+    every chunk, and each chunk's proposals all see that chunk's
+    generator."""
+    from lhvi_tpu_torch.ops import dia
 
     seen = []
     if engine == "hmc":
@@ -186,13 +187,13 @@ def test_chunk_generators_key_k2_and_k3_apart(tmp_path, monkeypatch, engine):
     else:
         g, _ = gaussian_grid(3, 3, seed=0, evidence_frac=0.2)
         fg = lt.compile_graph(g, "cpu")
-        real = nuts_traj.nuts_trajectory
+        real = nuts._nuts_sweep_batched
 
         def spy(fg_, gen, *a, **k):
             seen.append(gen.initial_seed())
             return real(fg_, gen, *a, **k)
 
-        monkeypatch.setattr(nuts_traj, "nuts_trajectory", spy)
+        monkeypatch.setattr(nuts, "_nuts_sweep_batched", spy)
         cfg = nuts.NUTSConfig(max_depth=3)
     # warmup 12 → chunks of 5+1 | 5+1; samples 12 → 5+5+2
     res = sample_checkpointed(fg, _gen(4), cfg, engine=engine, n_chains=4,

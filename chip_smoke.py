@@ -119,7 +119,10 @@ Phases (any failure raises and the script exits non-zero):
    engine's bound; the scripts' launches happen in their own processes
    and are not counted here); and the moments path (``--phase moments``:
    K7 and K8 at the grid cells' shapes, 15,600 latents at 1,024 and
-   16,384 chains, against their plain versions and timed). Each
+   16,384 chains, against their plain versions and timed); and K2's
+   Metropolis select (``--phase k2_select``: at the grid cells' shapes,
+   6 steps, 1,024 and 16,384 chains, bitwise against a launch without
+   uniforms followed by ``hmc._mh_accept``, and both timed). Each
    is held to exact answers (numpy/scipy oracles, closed forms) or to its
    plain route, and the bench's throughputs are printed (the VI, pod,
    mode-swap, BP, sharded and example rates again on ``[rates]`` lines;
@@ -937,6 +940,94 @@ def queued_ms(fn, reps: int = 20) -> tuple:
         torch.cuda.synchronize()
         dev_ms.append(a.elapsed_time(b) / reps)
     return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+def phase_k2_select(dev, smi, chains=(1024, 16384), steps=6, reps=20):
+    """K2's Metropolis select at the grid cells' shapes (a 128×128 grid
+    with 783 nodes observed, 15,601 latents, as the cells' 15,600; 6
+    steps, 1,024 and 16,384 chains) against the
+    pair it replaces, a launch without uniforms and then
+    ``hmc._mh_accept`` (log, compare, the [C, n] ``torch.where``, exp).
+    Checked bitwise, states and log_acc, with the uniforms drawn after
+    the momenta as the engine draws them, and with a fifth of the chains
+    forced to reject (u = 1; the others u = 0), the cells' accept rate.
+    Timed on the latter: each kernel alone (``time_ms``, single calls, as
+    PERF.md's K2 times are) and, with calls queued back to back
+    (``queued_ms``), the kernel alone, the fused select with the engine's
+    ``exp`` and the pair. Returns the times and the bytes the select
+    moves: the pair's pass (x1 and xc read, the state written) against
+    the fused write-back's re-read of the rejected rows."""
+    import torch
+
+    from lhvi_tpu_torch import compile_graph
+    from lhvi_tpu_torch.engines import hmc
+    from lhvi_tpu_torch.models.toy import gaussian_grid
+    from lhvi_tpu_torch.ops import dia
+
+    g, _ = gaussian_grid(128, 128, seed=0, evidence_frac=784 / 16384)
+    fg = compile_graph(g, dev, quad_max_n=4096)
+    n = fg.n_cont
+    consts = (fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w, fg.quad_h)
+    kw = dict(pos=fg.quad_dia_pos, inv=fg.quad_dia_inv)
+    rows = []
+    for C in chains:
+        gen = torch.Generator(dev).manual_seed(C)
+        im = 0.5 + torch.rand((n,), generator=gen, device=dev)
+        eps = torch.full((), 0.05, device=dev)
+        x = 2.0 * torch.randn((C, n), generator=gen, device=dev)
+        u = (torch.rand((C,), generator=gen, device=dev) < 0.2).float()
+        args = (*consts, im, eps, steps)
+        same = []
+        for drawn in (True, False):
+            gen.manual_seed(3)
+            x1, la = dia.dia_hmc_proposal(gen, x, *args, **kw)
+            uu = (torch.rand((C,), generator=gen, device=dev) if drawn
+                  else u)
+            want = hmc._mh_accept(x, x1, la, uu)[0]
+            gen.manual_seed(3)
+            got, la_s = (dia.dia_hmc_proposal(gen, x, *args, select=True,
+                                              **kw) if drawn else
+                         dia.dia_hmc_proposal(gen, x, *args, u=u, **kw))
+            torch.cuda.synchronize()
+            same.append(torch.equal(got, want) and torch.equal(la_s, la))
+        if not all(same):
+            raise AssertionError(f"K2's select differs from the launch and "
+                                 f"_mh_accept at C={C}: {same}")
+
+        def launch(uu=None):
+            return dia._cuda_dia_proposal(x, *args, 99, 0,
+                                          inv=fg.quad_dia_inv, u=uu)
+
+        def pair():
+            x1, la = launch()
+            return hmc._mh_accept(x, x1, la, u)
+
+        def fused():
+            xs, la = launch(u)
+            return xs, torch.exp(la)
+
+        rejected = int((u > 0).sum())
+        row = dict(
+            C=C, steps=steps, rejected=rejected,
+            alone_ms=time_ms(lambda: launch(u), reps),
+            alone_unfused_ms=time_ms(launch, reps),
+            queued_alone_ms=queued_ms(lambda: launch(u), reps)[0],
+            queued_alone_unfused_ms=queued_ms(launch, reps)[0],
+            queued_fused_ms=queued_ms(fused, reps)[0],
+            queued_pair_ms=queued_ms(pair, reps)[0],
+            pass_bytes=3 * 4 * C * n, reread_bytes=4 * rejected * n)
+        rows.append(row)
+        log(f"[K2 select] 128x128 grid, {n} latents, C={C}, {steps} steps, "
+            f"{rejected} "
+            f"rejected: K2 alone with the select {row['alone_ms']:.4f} ms, "
+            f"without {row['alone_unfused_ms']:.4f} ms (single calls); "
+            f"queued: alone {row['queued_alone_ms']:.4f} / "
+            f"{row['queued_alone_unfused_ms']:.4f} ms, fused + exp "
+            f"{row['queued_fused_ms']:.4f} ms, launch + _mh_accept "
+            f"{row['queued_pair_ms']:.4f} ms; bitwise equal (drawn, forced) "
+            f"{same}; the pair's pass {row['pass_bytes']} B against "
+            f"{row['reread_bytes']} B of rejected rows re-read; on {smi}")
+    return rows
 
 
 def phase_moments(dev, n=15600, chains=(1024, 16384), S=200, reps=20):
@@ -3732,6 +3823,11 @@ def main() -> int:
             # K7 and K8 at the grid cells' shapes, checked and timed
             ("moments", lambda: keep.update(moments=phase_moments(dev)),
              ("stream_diag", "moment_sums")),
+            # K2's select against the launch and _mh_accept, at the grid
+            # cells' shapes, checked and timed
+            ("k2_select",
+             lambda: keep.update(k2_select=phase_k2_select(dev, smi)),
+             ("dia_proposal",)),
             ("hybrid", lambda: phase_hybrid(dev, smi, keep["robot_hmc"]),
              ("weights",)),
             # VI, the pod cells, the mode-swap move and the BP/MAP engines
@@ -3776,7 +3872,8 @@ def main() -> int:
         {"name": "dia_proposal", "route": "cuda",
          "source": "lhvi_tpu_torch/ops/csrc/dia_proposal.cu",
          "replaces": "lhvi_tpu/ops/dia.py:354",
-         "launches": launches["dia_proposal"], **k2},
+         "launches": launches["dia_proposal"], **k2,
+         "select": keep["k2_select"]},
         {"name": "nuts_traj", "route": "cuda",
          "source": "lhvi_tpu_torch/ops/csrc/nuts_traj.cu",
          "replaces": "lhvi_tpu/ops/nuts_traj.py:48",

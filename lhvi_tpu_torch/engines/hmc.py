@@ -338,7 +338,10 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd, eps,
     (autograd over ``log_prob_cont_batched``, or kernel K5 with
     ``cfg.fused_logpot``), whose energies come back with the endpoint.
     Purely-discrete buckets are constant in xc at the chain's fixed xd and
-    drop out of the Hamiltonian exactly."""
+    drop out of the Hamiltonian exactly. The banded proposal makes the
+    Metropolis step itself (K2 selects in its write-back); the other
+    routes end in ``_mh_accept``. Every route draws the uniforms from
+    ``gen`` after the momenta."""
     C = xc.shape[0]
     if fg.n_cont == 0:
         # nothing moves; the reference's empty trajectory accepts
@@ -346,23 +349,23 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd, eps,
     if fg.cont_pure_quad and _use_dia(fg, cfg):
         from lhvi_tpu_torch.ops.dia import dia_hmc_proposal
 
-        x1, log_acc = dia_hmc_proposal(
+        x, log_acc = dia_hmc_proposal(
             gen, xc, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w,
             fg.quad_h, inv_mass, eps, cfg.n_leapfrog,
-            pos=fg.quad_dia_pos, inv=fg.quad_dia_inv,
+            pos=fg.quad_dia_pos, inv=fg.quad_dia_inv, select=True,
         )
+        return x, torch.exp(log_acc)
+    p0 = momentum_std(inv_mass)[None, :] * torch.randn(
+        xc.shape, generator=gen, device=xc.device)
+    if fg.cont_pure_quad:
+        x1, log_acc = _quad_proposal(fg, cfg, xc, p0, eps, inv_mass)
     else:
-        p0 = momentum_std(inv_mass)[None, :] * torch.randn(
-            xc.shape, generator=gen, device=xc.device)
-        if fg.cont_pure_quad:
-            x1, log_acc = _quad_proposal(fg, cfg, xc, p0, eps, inv_mass)
-        else:
-            from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
+        from lhvi_tpu_torch.ops.logpot import logpot_leapfrog
 
-            x1, p1, lp0, lp1 = logpot_leapfrog(
-                fg, xc, p0, xd, inv_mass, eps, cfg.n_leapfrog,
-                plan="auto" if cfg.fused_logpot else None)
-            log_acc = _log_accept(lp0, lp1, p0, p1, inv_mass)
+        x1, p1, lp0, lp1 = logpot_leapfrog(
+            fg, xc, p0, xd, inv_mass, eps, cfg.n_leapfrog,
+            plan="auto" if cfg.fused_logpot else None)
+        log_acc = _log_accept(lp0, lp1, p0, p1, inv_mass)
     u = torch.rand((C,), generator=gen, device=xc.device)
     return _mh_accept(xc, x1, log_acc, u)
 

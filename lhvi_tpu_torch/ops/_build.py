@@ -40,10 +40,10 @@ _SIGNATURES = {
     # chains, warps, smem, grid, j_smem, scratch (or null), barrier (or
     # null), stream
     "lhvi_quad_leapfrog": (_P,) * 8 + (_I,) * 9 + (_P, _P, _P),
-    # x, diag, wdia, h, inv_mass, inv (or null), p0 (or null), eps, x_out,
-    # log_acc, C, n, n_emb, K, offsets (host int[K]), n_steps, seed,
-    # offset, cluster, threads, chains, slice, smem, stream
-    "lhvi_dia_proposal": (_P,) * 10 + (_I,) * 4 + (_P, _I, _U64, _U64)
+    # x, diag, wdia, h, inv_mass, inv (or null), p0 (or null), u (or
+    # null), eps, x_out, log_acc, C, n, n_emb, K, offsets (host int[K]),
+    # n_steps, seed, offset, cluster, threads, chains, slice, smem, stream
+    "lhvi_dia_proposal": (_P,) * 11 + (_I,) * 4 + (_P, _I, _U64, _U64)
                          + (_I,) * 5 + (_P,),
     # x, p, diag, wdia, h, inv_mass, inv (or null), eps, x_out, p_out, lp0,
     # lp1, C, n, n_emb, K, offsets (host int[K]), n_steps, cluster,

@@ -6,7 +6,10 @@
 // standard normal, drawn in-kernel, or read from memory in test mode, std
 // = 1/sqrt(im), 0 at gap lanes); position-Verlet with J x = diag*x +
 // sum_k w_k * x[i + o_k]; lp = 1/2 sum x(h + g) at both ends; kinetic
-// energies 1/2 sum im p^2; log_acc = min(0, dlp + dKE).
+// energies 1/2 sum im p^2; log_acc = min(0, dlp + dKE), -inf where not
+// finite. Given the chains' uniforms u, the kernel also makes the
+// Metropolis step: it writes x1 where log u < log_acc and x0 elsewhere, so
+// the caller runs no [C, n] select of its own.
 //
 // What bounds it on the H100. At the benchmark's shape (128x128 grid,
 // n_emb = 16,384 lanes, K = 4, 6 steps) the arithmetic is 2(K+1) flops per
@@ -28,7 +31,11 @@
 // distributed shared memory: one cluster barrier per step, released by one
 // thread's fence. The embedding is folded in: rows and the latent diag, h
 // and inv_mass are read through inv. The four per-chain energy sums are
-// one double per chain and end, reduced in a fixed order.
+// one double per chain and end, reduced in a fixed order. With u, the
+// trajectories are unchanged and each cluster, once its groups are done,
+// writes x0 back over the rows of its rejected chains: about a fifth of
+// the rows read and written again at an accept rate of 0.8, against a
+// [C, n] pass that reads two arrays and writes a third.
 //
 // Momenta: counter-based Philox4x32-10 keyed by a 64-bit seed, with
 // counter (lane quad, chain, offset): the stream for a (seed, offset,
@@ -57,7 +64,8 @@ dia_proposal_kernel(const __grid_constant__ lhvi_dia::Args a) {
 extern "C" int lhvi_dia_proposal(const float* x, const float* diag,
                                  const float* wdia, const float* h,
                                  const float* im, const int64_t* inv,
-                                 const float* p0, const float* eps,
+                                 const float* p0, const float* u,
+                                 const float* eps,
                                  float* xo, float* log_acc, int C, int n,
                                  int n_emb, int K, const int* offsets,
                                  int n_steps, unsigned long long seed,
@@ -70,8 +78,8 @@ extern "C" int lhvi_dia_proposal(const float* x, const float* diag,
                                     slice, (size_t)smem, &a.offs);
   if (code != 0) return code;
   a.x = x; a.p = p0; a.diag = diag; a.wdia = wdia; a.h = h; a.im = im;
-  a.inv = inv; a.eps = eps; a.xo = xo; a.po = nullptr; a.out0 = log_acc;
-  a.out1 = nullptr;
+  a.inv = inv; a.eps = eps; a.u = u; a.xo = xo; a.po = nullptr;
+  a.out0 = log_acc; a.out1 = nullptr;
   a.C = C; a.n = n; a.n_emb = n_emb; a.K = K; a.n_steps = n_steps;
   a.slice = slice;
   a.key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));

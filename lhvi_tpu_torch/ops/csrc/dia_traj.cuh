@@ -53,11 +53,19 @@
 // reduces them with a fixed shuffle pattern (warp_sums) into shared
 // memory, the block adds its warps in warp order, and rank 0 adds the S
 // blocks' partials in rank order, so every run gives the same bits.
+// The Metropolis select (K2 given uniforms u): the trajectories write x1
+// as they end, unchanged; once a cluster's groups are all done, each of
+// its blocks reads back the log-accepts rank 0 wrote and puts its lanes of
+// every rejected chain's row back to x0, so the launch leaves the next
+// state and the [C, n] select pass after it goes. Deciding per group
+// instead, in every block between a group's sums and the next group,
+// measured 0.5-0.75 ms slower a launch at 16,384 chains (PERF.md).
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -86,6 +94,7 @@ struct Args {
   const float* im;    // [n] latent inverse mass
   const int64_t* inv; // [n_emb] latent index, n at a gap lane; null: identity
   const float* eps;   // device scalar
+  const float* u;     // K2: [C] uniforms, xo the selected state; null: x1
   float* xo;          // [C, n]
   float* po;          // [C, n] (K6) or null
   float* out0;        // K2: log_acc [C]; K6: lp0 [C]
@@ -244,8 +253,9 @@ __device__ __forceinline__ void warp_sums(double (&v)[CB], int lane,
 }
 
 // The whole trajectory for every chain group of the launch. kProposal: K2
-// (momenta drawn in-kernel unless a.p is given, log_acc out); otherwise K6
-// (momenta from a.p; x1, p1, lp0, lp1 out).
+// (momenta drawn in-kernel unless a.p is given, log_acc out; x1 out, or
+// with a.u the Metropolis-selected state); otherwise K6 (momenta from a.p;
+// x1, p1, lp0, lp1 out).
 template <int CB, bool kProposal>
 __device__ __forceinline__ void run(const Args& a) {
   constexpr int ML = kRegLanes / CB;  // lanes a thread owns, at most
@@ -481,16 +491,73 @@ __device__ __forceinline__ void run(const Args& a) {
         s1 += gath[r * 2 * CB + CB + tid];
       }
       if (kProposal) {
-        // 1/2 [(lp1 - ke1) - (lp0 - ke0)]; NaN stays NaN
+        // 1/2 [(lp1 - ke1) - (lp0 - ke0)], capped at 0; a non-finite value
+        // (NaN, an overflow) is -inf, so it never accepts
         const double d = 0.5 * (s1 - s0);
-        a.out0[c0 + tid] = (float)(d > 0.0 ? 0.0 : d);
+        const float la = (float)(d > 0.0 ? 0.0 : d);
+        a.out0[c0 + tid] = isfinite(la) ? la : -CUDART_INF_F;
       } else {
         a.out0[c0 + tid] = (float)(0.5 * s0);
         a.out1[c0 + tid] = (float)(0.5 * s1);
       }
     }
   }
-  cl.sync();  // no block leaves while a peer may still read its memory
+  cl.sync();  // no block leaves while a peer may still read its memory;
+              // rank 0's log_acc stores seen by the cluster
+  if (kProposal && a.u != nullptr) {
+    // The select: the cluster's rejected chains (log u < log_acc fails)
+    // listed in buf0 (free now), for a chunk of its groups at a time; then
+    // this block's lanes of their rows back to x0, CB rows at a time, every
+    // load before the stores, so that a thread has up to CB x ML loads in
+    // flight (a store to xo may alias a later load of x for all the
+    // compiler knows). The list's order varies; the rows written do not.
+    int* rows = reinterpret_cast<int*>(buf0);  // [slice * CB]
+    int* n_rows = reinterpret_cast<int*>(red);
+    const int first = blockIdx.x / S;
+    const int mine = (n_groups - first + n_clusters - 1) / n_clusters;
+    for (int k0 = 0; k0 < mine; k0 += slice) {
+      const int kn = min(slice, mine - k0);
+      if (tid == 0) *n_rows = 0;
+      __syncthreads();
+      for (int e = tid; e < kn; e += T) {
+        const int c0 = (first + (k0 + e) * n_clusters) * CB;
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          if (c0 + c < a.C && !(logf(a.u[c0 + c]) < a.out0[c0 + c]))
+            rows[atomicAdd(n_rows, 1)] = c0 + c;
+      }
+      __syncthreads();
+      const int nr = *n_rows;
+      for (int r0 = 0; r0 < nr; r0 += CB) {
+        float y[CB][ML];
+#pragma unroll
+        for (int j = 0; j < CB; ++j) {
+          if (r0 + j < nr) {
+            const size_t row = (size_t)rows[r0 + j] * a.n;
+#pragma unroll
+            for (int l = 0; l < ML; ++l) {
+              const int i = tid + l * T;
+              const int v = (l < lpt && i < own) ? cinv[i] : -1;
+              if (v >= 0) y[j][l] = a.x[row + v];
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < CB; ++j) {
+          if (r0 + j < nr) {
+            const size_t row = (size_t)rows[r0 + j] * a.n;
+#pragma unroll
+            for (int l = 0; l < ML; ++l) {
+              const int i = tid + l * T;
+              const int v = (l < lpt && i < own) ? cinv[i] : -1;
+              if (v >= 0) a.xo[row + v] = y[j][l];
+            }
+          }
+        }
+      }
+      __syncthreads();  // the list read before the next chunk's
+    }
+  }
 }
 
 // Host-side checks shared by both launchers: argument ranges, the offsets

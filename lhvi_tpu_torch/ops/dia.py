@@ -342,13 +342,16 @@ def _momentum_std(im):
 
 
 def _cuda_dia_proposal(x, diag, offsets, wdia, h, im, eps, n_steps: int,
-                       seed: int, offset: int, inv=None, p0=None):
+                       seed: int, offset: int, inv=None, p0=None, u=None):
     """Launch K2 on LATENT rows: x [C, n] → (x1 [C, n], log_acc [C]), with
     ``inv`` (int64 [n_emb]) the inverse embedding, None for the identity;
     diag, h and im are latent too (the kernel embeds them, and forms the
     momentum scale from im). ``p0`` (test mode, [C, n]) replaces the
     in-kernel momentum draw; otherwise momenta come from Philox keyed by
-    ``seed`` with counter (lane quad, chain, ``offset``)."""
+    ``seed`` with counter (lane quad, chain, ``offset``). log_acc is −inf
+    where it is not finite. ``u`` ([C] uniforms) makes the kernel write
+    the Metropolis-selected state instead of x1: x1 where
+    ``log u < log_acc``, else x (counter ``ops.k2.selects``)."""
     C, n, n_emb, K = _check_banded("K2", x, offsets, wdia, inv)
     dev = x.device
     eps = eps_tensor(eps, dev)
@@ -358,6 +361,8 @@ def _cuda_dia_proposal(x, diag, offsets, wdia, h, im, eps, n_steps: int,
         _check_f32(name, t, dev, shape)
     if p0 is not None:
         _check_f32("p0", p0, dev, (C, n))
+    if u is not None:
+        _check_f32("u", u, dev, (C,))
     geo = dia_launch(n_emb, K)
     xo = torch.empty_like(x)
     log_acc = torch.empty((C,), dtype=torch.float32, device=dev)
@@ -366,19 +371,32 @@ def _cuda_dia_proposal(x, diag, offsets, wdia, h, im, eps, n_steps: int,
     code = _build.lib().lhvi_dia_proposal(
         x.data_ptr(), diag.data_ptr(), wdia.data_ptr(), h.data_ptr(),
         im.data_ptr(), None if inv is None else inv.data_ptr(),
-        None if p0 is None else p0.data_ptr(), eps.data_ptr(),
+        None if p0 is None else p0.data_ptr(),
+        None if u is None else u.data_ptr(), eps.data_ptr(),
         xo.data_ptr(), log_acc.data_ptr(), C, n, n_emb, K,
         ctypes.cast(offs, ctypes.c_void_p), int(n_steps),
         seed & (2**64 - 1), offset & (2**64 - 1), *geo, stream)
     _build.check(code, "dia_proposal")
     count("ops.k2.launches")
+    if u is not None:
+        count("ops.k2.selects")
     return xo, log_acc
 
 
 def dia_hmc_proposal(gen, xc, diag, offsets, wdia, h, inv_mass, eps,
-                     n_steps: int, pos=None, inv=None, p0=None):
+                     n_steps: int, pos=None, inv=None, p0=None,
+                     select: bool = False, u=None):
     """One full HMC proposal on a banded target: sample momenta,
-    integrate the whole trajectory, return ``(x1 [C, n], log_acc [C])``.
+    integrate the whole trajectory, return ``(x1 [C, n], log_acc [C])``,
+    log_acc −inf where it is not finite.
+
+    ``select`` (or given uniforms ``u`` [C]) makes it the whole Metropolis
+    step: the first output is then the next state, x1 where
+    ``log u < log_acc`` and xc elsewhere. Without ``u`` the uniforms are
+    drawn by ``torch.rand((C,), generator=gen)`` after the momenta, as a
+    caller drawing them after the proposal would. On CUDA tensors K2 makes
+    the select itself (it writes x0 back over the rejected chains' rows),
+    so no [C, n] select runs after it.
 
     Everything between the momentum draw and the accept test runs in
     EMBEDDED coordinates (``pos`` and its inverse ``inv``); gap lanes get
@@ -398,35 +416,43 @@ def dia_hmc_proposal(gen, xc, diag, offsets, wdia, h, inv_mass, eps,
     coordinates, [C, n]) replaces the momentum draw on either route, so
     one trajectory can be compared exactly.
     """
+    select = select or u is not None
+
+    def uniforms():
+        return u if u is not None else torch.rand(
+            (xc.shape[0],), generator=gen, device=xc.device)
+
     if xc.is_cuda:
         seed = offset = 0
         if p0 is None:
             seed, offset = gen.initial_seed() ^ _KEY_TAG, gen.get_offset()
             gen.set_offset(offset + 4)  # CUDA offsets step in fours
-        x1, log_acc = _cuda_dia_proposal(
+        return _cuda_dia_proposal(
             xc.contiguous(), diag.contiguous(), offsets, wdia, h.contiguous(),
             inv_mass.contiguous(), eps, n_steps, seed, offset,
             inv=None if pos is None else inv,
-            p0=None if p0 is None else p0.contiguous())
-    elif xc.device.type == "cpu":
-        if pos is not None:
-            x, diag, h, im = (_embed_gather(a, inv)
-                              for a in (xc, diag, h, inv_mass))
-            p0 = None if p0 is None else _embed_gather(p0, inv)
-        else:
-            x, im = xc, inv_mass
-        if p0 is None:
-            p0 = _momentum_std(im)[None, :] * torch.randn(
-                x.shape, generator=gen, dtype=x.dtype)
-        x1, p1, lp0, lp1 = _torch_dia_leapfrog(
-            x, p0, diag, offsets, wdia, h, im, eps, n_steps)
-        log_acc = torch.clamp((lp1 - lp0) + (_kinetic(im, p0)
-                                             - _kinetic(im, p1)), max=0.0)
-        if pos is not None:
-            x1 = x1[..., pos]
-    else:
+            p0=None if p0 is None else p0.contiguous(),
+            u=uniforms().contiguous() if select else None)
+    if xc.device.type != "cpu":
         raise NotImplementedError(f"dia_hmc_proposal: no route for "
                                   f"{xc.device}")
+    if pos is not None:
+        x, diag, h, im = (_embed_gather(a, inv)
+                          for a in (xc, diag, h, inv_mass))
+        p0 = None if p0 is None else _embed_gather(p0, inv)
+    else:
+        x, im = xc, inv_mass
+    if p0 is None:
+        p0 = _momentum_std(im)[None, :] * torch.randn(
+            x.shape, generator=gen, dtype=x.dtype)
+    x1, p1, lp0, lp1 = _torch_dia_leapfrog(
+        x, p0, diag, offsets, wdia, h, im, eps, n_steps)
+    log_acc = torch.clamp((lp1 - lp0) + (_kinetic(im, p0)
+                                         - _kinetic(im, p1)), max=0.0)
     log_acc = torch.where(torch.isfinite(log_acc), log_acc,
-                          torch.full((), -math.inf, device=log_acc.device))
+                          torch.full((), -math.inf))
+    if pos is not None:
+        x1 = x1[..., pos]
+    if select:
+        x1 = torch.where((torch.log(uniforms()) < log_acc)[:, None], x1, xc)
     return x1, log_acc

@@ -116,9 +116,13 @@ def _dia_case(dev, grid32, dia_grids, case):
     multiple of the 8 chains per block (128×128 grid, 1,021 chains; 3
     chains, fewer than one group), the widest row (DIA_MAX_EMB lanes, 5
     chains against 4 per block), a band with no row structure and a
-    chain (``_BANDS``, 13 and 19 chains)."""
+    chain (``_BANDS``, 13 and 19 chains), and a chain of 16 lanes at
+    1,000,003 chains (``many``: one-block clusters of 16 lanes, each with
+    more groups than the select lists in one pass)."""
     if case == "max":
         return (*_banded(dev, dia.DIA_MAX_EMB), None, None, 5)
+    if case == "many":
+        return (*_banded(dev, 16, offs=(-1, 1)), None, None, 1_000_003)
     if case in _BANDS:
         n, offs = _BANDS[case]
         return (*_banded(dev, n, offs=offs), None, None,
@@ -166,6 +170,59 @@ def test_dia_proposal_kernel_given_p0_matches_plain(dev, grid32, dia_grids,
     if n_steps == 0:
         assert torch.equal(lacc.cpu(), torch.zeros(C))
         assert torch.equal(x1, xc)
+
+
+@pytest.mark.parametrize("uniforms", ["drawn", "accept", "reject"])
+@pytest.mark.parametrize("n_steps,case", [
+    pytest.param(s, c, id=f"{s}-{c}")
+    for c in ("grid32", "grid16", "grid128", "grid128-3", "max", "norows",
+              "chain", "many")
+    for s in (0, 6)])
+def test_dia_proposal_kernel_select_equals_launch_and_where(
+        dev, grid32, dia_grids, case, n_steps, uniforms):
+    """K2's Metropolis select (the launch given uniforms) against the
+    pair it replaces, a launch without uniforms and then
+    ``torch.where(log u < log_acc, x1, xc)``, bitwise in the state and in
+    log_acc, with in-kernel momenta from one generator state, on every
+    cluster size (1 to 8 blocks), ragged chain counts and both step
+    counts; ``many`` takes the select's list in several passes a
+    cluster. ``drawn``: ``select=True``, the uniforms drawn after the
+    momenta, as an engine drawing them after the launch would; ``accept``
+    (u = 0) and ``reject`` (u = 1) force every decision. One chain has an
+    inf in its row: its log_acc is −inf and it comes back as x0."""
+    diag, offs, wdia, h, pos, inv, C = _dia_case(dev, grid32, dia_grids, case)
+    n = diag.shape[0]
+    g = torch.Generator(dev).manual_seed(100 + n_steps)
+    xc = 2.0 * torch.randn((C, n), generator=g, device=dev)
+    bad = C // 2
+    xc[bad, n // 3] = float("inf")
+    im = 0.5 + torch.rand((n,), generator=g, device=dev)
+    args = (diag, offs, wdia, h, im, torch.full((), 0.1, device=dev), n_steps)
+    kw = dict(pos=pos, inv=inv)
+    gen = torch.Generator(dev)
+    gen.manual_seed(7)
+    x1, lacc = dia.dia_hmc_proposal(gen, xc, *args, **kw)
+    u = {"drawn": lambda: torch.rand((C,), generator=gen, device=dev),
+         "accept": lambda: torch.zeros((C,), device=dev),
+         "reject": lambda: torch.ones((C,), device=dev)}[uniforms]()
+    want = torch.where((torch.log(u) < lacc)[:, None], x1, xc)
+    after = gen.get_state()
+    gen.manual_seed(7)
+    before = counters()["ops.k2.selects"]
+    if uniforms == "drawn":
+        got, lacc_s = dia.dia_hmc_proposal(gen, xc, *args, select=True, **kw)
+        assert torch.equal(gen.get_state(), after)
+    else:
+        got, lacc_s = dia.dia_hmc_proposal(gen, xc, *args, u=u, **kw)
+    torch.cuda.synchronize()
+    assert counters()["ops.k2.selects"] == before + 1
+    assert torch.equal(lacc_s, lacc) and torch.equal(got, want)
+    assert lacc[bad] == -float("inf") and torch.equal(got[bad], xc[bad])
+    if uniforms == "reject":
+        assert torch.equal(got, xc)
+    if uniforms == "accept":
+        ok = torch.arange(C, device=dev) != bad
+        assert torch.equal(got[ok], x1[ok])
 
 
 def test_dia_proposal_kernel_momenta(dev, grid32):
@@ -237,6 +294,65 @@ def test_dia_runs_on_one_generator_draw_fresh_momenta(dev, grid32):
     both = moved[0] & moved[1]
     assert bool(both.any())
     assert not torch.equal(runs[0][both], runs[1][both])
+
+
+def test_run_hmc_banded_select_equals_launch_and_mh_accept(dev, grid32,
+                                                         monkeypatch):
+    """A whole banded ``run_hmc`` query (30 transitions, mass adaptation,
+    streamed diagnostics) with K2's select against the same query whose
+    proposals launch K2 without uniforms and select outside the kernel
+    through ``hmc._mh_accept``: the final states and every moment and
+    diagnostic are bitwise equal. ``ops.k2.selects`` counts every
+    transition of the fused run, none of the patched one, and none under
+    SMC's banded move (which selects in ``smc._mh``)."""
+    from lhvi_tpu_torch.engines import hmc, smc
+
+    fg = grid32
+    cfg = hmc.HMCConfig(n_leapfrog=6, init_step_size=0.1)
+    real_prop, real_trans = dia.dia_hmc_proposal, hmc.hmc_transition
+    last = []
+
+    def trans(*a, **k):
+        out = real_trans(*a, **k)
+        last[:] = [out[0].xc]
+        return out
+
+    def unfused(gen, xc, *a, select=False, u=None, **k):
+        x1, lacc = real_prop(gen, xc, *a, **k)
+        if not select:
+            return x1, lacc
+        u = torch.rand((xc.shape[0],), generator=gen, device=xc.device)
+        return hmc._mh_accept(xc, x1, lacc, u)[0], lacc
+
+    monkeypatch.setattr(hmc, "hmc_transition", trans)
+    runs = []
+    for patched in (False, True):
+        if patched:
+            monkeypatch.setattr(dia, "dia_hmc_proposal", unfused)
+        before = counters()
+        m, _, diag = hmc.run_hmc(fg, torch.Generator(dev).manual_seed(11),
+                                 cfg, n_chains=77, n_warmup=20,
+                                 n_samples=10, collect="moments",
+                                 stream_diag=True)
+        torch.cuda.synchronize()
+        seen = counters() - before
+        assert seen["hmc.transitions"] == 30
+        assert seen["ops.k2.launches"] == 30
+        assert seen["ops.k2.selects"] == (0 if patched else 30)
+        runs.append((last[0], m, diag))
+    (xa, ma, da), (xb, mb, db) = runs
+    assert torch.equal(xa, xb)
+    for a, b in ((ma, mb), (da, db)):
+        assert a.keys() == b.keys()
+        for k in a:
+            torch.testing.assert_close(a[k], b[k], rtol=0, atol=0,
+                                       equal_nan=True, msg=k)
+    monkeypatch.setattr(dia, "dia_hmc_proposal", real_prop)
+    before = counters()
+    smc.sample(fg, torch.Generator(dev).manual_seed(12),
+               smc.SMCConfig(n_particles=256, n_temps=4))
+    seen = counters() - before
+    assert seen["ops.k2.launches"] > 0 and seen["ops.k2.selects"] == 0
 
 
 # ---- K6: the banded leapfrog from given momenta ------------------------------

@@ -180,6 +180,51 @@ def test_dia_hmc_proposal_cpu_draw_is_plain(grids):
     assert torch.isfinite(a[0]).all() and (a[1] <= 0).all()
 
 
+def test_dia_hmc_proposal_cpu_select_is_mh_accept(grids):
+    """With ``select`` the plain route makes the engine's Metropolis step:
+    bitwise ``hmc._mh_accept`` on the proposal's own outputs, with given
+    uniforms and with uniforms drawn from the generator after the momenta
+    (the generator ends in the same state as a proposal followed by the
+    engine's own draw). A chain with a non-finite energy (an inf in its
+    row) gets log_acc −inf and comes back as x0, bit for bit. Near the
+    mode with ε = 0.9 some proposals are accepted and some rejected."""
+    from lhvi_tpu_torch.engines import hmc
+
+    _, _, fg = grids
+    n, C = fg.n_cont, 16
+    J = dia.dia_matvec(torch.eye(n, dtype=torch.float64),
+                       fg.quad_diag.double(), fg.quad_dia_offsets,
+                       fg.quad_dia_w.double(), pos=fg.quad_dia_pos)
+    mode = torch.linalg.solve(J, fg.quad_h.double())
+    rng = np.random.default_rng(6)
+    x = (mode[None] + torch.from_numpy(rng.normal(size=(C, n)))).float()
+    x[3, 100] = float("inf")
+    im = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    p = torch.from_numpy(rng.normal(size=(C, n)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=C).astype(np.float32))
+
+    def call(gen, **kw):
+        return dia.dia_hmc_proposal(
+            gen, x, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w,
+            fg.quad_h, im, 0.9, 6, pos=fg.quad_dia_pos, inv=fg.quad_dia_inv,
+            **kw)
+
+    x1, lacc = call(None, p0=p)
+    xs, ls = call(None, p0=p, u=u)
+    assert torch.equal(xs, hmc._mh_accept(x, x1, lacc, u)[0])
+    assert torch.equal(ls, lacc) and lacc[3] == -float("inf")
+    assert torch.equal(xs[3], x[3])
+    took = (torch.log(u) < lacc).sum()
+    assert 0 < took < C - 1
+    g_pair, g_sel = (torch.Generator().manual_seed(5) for _ in range(2))
+    x1, lacc = call(g_pair)
+    want = hmc._mh_accept(x, x1, lacc, torch.rand((C,), generator=g_pair))[0]
+    xs, ls = call(g_sel, select=True)
+    assert torch.equal(xs, want) and torch.equal(ls, lacc)
+    assert torch.equal(g_sel.get_state(), g_pair.get_state())
+    assert torch.equal(xs[3], x[3])
+
+
 @pytest.fixture(scope="module")
 def grid16():
     """tests/test_dia.py's 16×16 grid (15% evidence) forced onto the banded

@@ -115,13 +115,18 @@ def categorical(gen, logits):
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
+def _values_of(vals, idx):
+    """``vals[i, idx[..., i]]``: the domain VALUES ``[C, m]`` of index
+    states ``idx [C, m]`` from a per-var value table ``vals [m, V]``, in
+    one gather."""
+    return torch.gather(vals.expand((idx.shape[0],) + vals.shape), 2,
+                        idx[..., None])[..., 0]
+
+
 def state_values(fg: CompiledFG, xd):
     """Discrete index state ``[C, n_disc]`` → domain VALUES ``[C, n_disc]``
-    (one-hot multiply-add over the per-var value table; V is tiny)."""
-    out = torch.zeros(xd.shape, device=xd.device)
-    for v in range(fg.max_v):
-        out = out + torch.where(xd == v, fg.disc_vals[None, :, v], 0.0)
-    return out
+    (one gather from the per-var value table)."""
+    return _values_of(fg.disc_vals, xd)
 
 
 def gibbs_sweep(fg: CompiledFG, gen, xc, xd, max_colors: int = 0,
@@ -236,11 +241,7 @@ def gibbs_sweep_planned(fg: CompiledFG, gen, xc, xd, beta=1.0):
             new = categorical(gen, logits)  # [C, M]
             xd[:, grp.vars_[j]] = new
             if xv is not None:
-                nv = torch.zeros(new.shape, device=dev)
-                for v in range(V):
-                    nv = nv + torch.where(new == v, grp.vals_[j][None, :, v],
-                                          0.0)
-                xv[:, grp.vars_[j]] = nv
+                xv[:, grp.vars_[j]] = _values_of(grp.vals_[j], new)
     return xd[:, :-1]
 
 
@@ -270,18 +271,47 @@ def planned_logits(fg: CompiledFG, xc, xd, cells=None):
                        torch.full((), _NEG_BIG, device=dev))
 
 
+def _sweep_work(fg: CompiledFG, planned: bool, max_colors: int) -> tuple:
+    """(colour classes, factor rows × candidate values) one sweep
+    evaluates, from the plan's table shapes on the host: on the planned
+    path each class's (padded) adjacent rows, on the all-rows path every
+    discrete slot of every row of a bucket with one, for each class
+    processed."""
+    V = fg.max_v
+    if planned:
+        classes = rows = 0
+        for grp in fg.color_plan.groups:
+            classes += grp.n_colors
+            rows += grp.n_colors * V * sum(t["w"].shape[1]
+                                           for t in grp.bucket_tabs
+                                           if t is not None)
+        return classes, rows
+    classes = (max_colors if 0 < max_colors < fg.n_colors
+               else fg.n_colors)
+    return classes, classes * V * sum(b.ad * b.n_factors
+                                      for b in fg.buckets)
+
+
 def sweep_all(fg: CompiledFG, cfg: HMCConfig, gen, xc, xd):
     """cfg.gibbs_sweeps chromatic sweeps over all chains: through the
     per-color plan when the model has one, else (or with
-    ``gibbs_max_colors > 0``) through the rotated all-rows path."""
+    ``gibbs_max_colors > 0``) through the rotated all-rows path. Counted
+    as ``hmc.sweep_classes`` (colour classes drawn, all chains at once)
+    and ``hmc.sweep_rows`` (factor rows × candidate values evaluated);
+    timed as span ``hmc.sweep``. A model without discrete latents
+    returns at once, counting and timing nothing."""
     if fg.n_disc == 0:
         return xd
     planned = fg.color_plan is not None and cfg.gibbs_max_colors == 0
-    for _ in range(cfg.gibbs_sweeps):
-        if planned:
-            xd = gibbs_sweep_planned(fg, gen, xc, xd)
-        else:
-            xd = gibbs_sweep(fg, gen, xc, xd, cfg.gibbs_max_colors)
+    classes, rows = _sweep_work(fg, planned, cfg.gibbs_max_colors)
+    count("hmc.sweep_classes", classes * cfg.gibbs_sweeps)
+    count("hmc.sweep_rows", rows * cfg.gibbs_sweeps)
+    with span("hmc.sweep"):
+        for _ in range(cfg.gibbs_sweeps):
+            if planned:
+                xd = gibbs_sweep_planned(fg, gen, xc, xd)
+            else:
+                xd = gibbs_sweep(fg, gen, xc, xd, cfg.gibbs_max_colors)
     return xd
 
 
@@ -389,7 +419,8 @@ def hmc_transition(fg: CompiledFG, cfg: HMCConfig, state: HMCState, gen,
     generator of ``modeswap.maybe_mode_swap``), then one HMC proposal at
     the new discrete state. Under ``shard`` the adaptation reads the
     acceptance and the Welford batch over all ranks' chains. Counted as
-    ``hmc.transitions``; timed as span ``hmc.transition``."""
+    ``hmc.transitions``; timed as span ``hmc.transition`` (the sweep
+    inside it as ``sweep_all``'s span ``hmc.sweep``)."""
     count("hmc.transitions")
     with span("hmc.transition"):
         xd = sweep_all(fg, cfg, gen, state.xc, state.xd)
@@ -726,12 +757,7 @@ def disc_diag_select(fg: CompiledFG, cap: int, seed: int = 0) -> np.ndarray:
 
 def _disc_sel_values(fg: CompiledFG, sel, xd):
     """``[C, n_sel]`` f32 domain VALUES of the selected discrete latents."""
-    xs = xd[:, sel]
-    vals = fg.disc_vals[sel]  # [n_sel, V]
-    out = torch.zeros(xs.shape, device=xd.device)
-    for v in range(fg.max_v):
-        out = out + torch.where(xs == v, vals[None, :, v], 0.0)
-    return out
+    return _values_of(fg.disc_vals[sel], xd[:, sel])
 
 
 def _stream_diag_disc_update(sdd: _StreamDiagDisc, t: int, xv,
@@ -815,9 +841,8 @@ class _MomentStream:
         with span("hmc.moments"):
             self.s1, self.s2 = _moment_sums(self.s1, self.s2, xc)
             if fg.n_disc:
-                self.cnt = self.cnt + torch.stack(
-                    [torch.sum(xd == v, dim=0) for v in range(fg.max_v)],
-                    dim=-1)
+                self.cnt = self.cnt + torch.nn.functional.one_hot(
+                    xd, fg.max_v).sum(dim=0)
             if self.sd is not None:
                 self.sd = _stream_diag_update(self.sd, t, xc, self.half,
                                               self.bm_len, self.n_batches)

@@ -1005,6 +1005,48 @@ def test_logpot_leapfrog_kernel_matches_tape(dev, model, C, n_steps,
         assert torch.equal(got[0], x) and torch.equal(got[2], got[3])
 
 
+@pytest.mark.parametrize("tempered", [False, True])
+def test_logpot_leapfrog_kernel_at_the_robot_cells_shape(dev, tempered):
+    """K5 through ``plan="auto"`` against its plain twin on
+    ``robot_map(100)`` (bench.py's scan, seed 0) at the benchmark cell
+    ``robot100_hmc``'s 65,536 chains: 8 steps of 0.05, as the smoke
+    run's 16,384-chain robot case, untempered and at β = 0.3 with its
+    base measure, and with its tolerances: x1, p1 within
+    1e-4·max(1,|plain|), E0, E1 within 2e-4·max(1,|plain|)."""
+    from lhvi_tpu_torch.models.relational import (robot_map,
+                                                  robot_scan_evidence)
+    from lhvi_tpu_torch.ops import logpot
+    from lhvi_tpu_torch.relational.data import load_evidence
+
+    text, _ = robot_scan_evidence(100, seed=0)
+    fg = lt.compile_graph(robot_map(100, evidence=load_evidence(text))
+                          .ground()[0], dev)
+    plan = logpot.kernel_plan(fg)
+    C, n = 65536, fg.n_cont
+    g = torch.Generator(dev).manual_seed(C + 8)
+    lo, hi = fg.cont_lo, fg.cont_hi
+    x = lo + (hi - lo) * torch.rand((C, n), generator=g, device=dev)
+    p = torch.randn((C, n), generator=g, device=dev)
+    sizes = torch.as_tensor(fg.meta.np_global["disc_sizes"], device=dev)
+    xd = (torch.rand((C, fg.n_disc), generator=g, device=dev)
+          * sizes[None]).long()
+    im = 0.5 + torch.rand((n,), generator=g, device=dev)
+    kw = {}
+    if tempered:
+        kw = dict(beta=torch.full((), 0.3, device=dev),
+                  base_mid=0.5 * (lo + hi),
+                  base_inv_s2=torch.full((n,), 0.25, device=dev))
+    args = (fg, x, p, xd, im, torch.full((), 0.05, device=dev), 8)
+    before = counters()["ops.k5.launches"]
+    got = logpot.logpot_leapfrog(*args, plan="auto", **kw)
+    want = logpot.tape_logpot_leapfrog(*args, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert counters()["ops.k5.launches"] == before + 1
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    assert _rel(got[0], want[0]) < 1e-4 and _rel(got[1], want[1]) < 1e-4
+    assert _rel(got[2], want[2]) < 2e-4 and _rel(got[3], want[3]) < 2e-4
+
+
 def test_logpot_leapfrog_kernel_rejects_bad_input(dev):
     from lhvi_tpu_torch.ops import logpot
 
